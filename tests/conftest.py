@@ -38,6 +38,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "timeout(seconds): hard per-test wall-clock limit, "
                    "SIGALRM-enforced where available")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skips elsewhere "
+                   "(run on the card: python -m pytest -m cuda tests)")
 
 
 @pytest.hookimpl(hookwrapper=True)
