@@ -1,4 +1,4 @@
-"""Coexecutor Runtime on torch — the port's first slice.
+"""Coexecutor Runtime on torch.
 
 Public surface:
     CoexecutorRuntime, counits_from_devices     — real co-execution (Listing 1)
@@ -13,6 +13,9 @@ Public surface:
     DataPlaneCounters, make_plane               — USM/BUFFERS data planes
     TorchUnit                                   — a unit on one torch device
     SPECS, ALL_BENCHMARKS                       — Table 1 rows
+
+``repro_torch.core.director.Director`` is the blocking facade over the
+engine, as in the reference (imported from its module).
 
 The DES, traffic, cluster and energy tiers wait for later slices.
 """

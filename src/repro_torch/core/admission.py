@@ -20,7 +20,7 @@ discrete-event simulator:
   coalesced into one fused launch whose index space is *members*; N tiny
   requests then cost ~one dispatch per unit instead of N full scheduler
   drains. The caller supplies the materializer (the engine stacks inputs
-  and vmaps the kernel; the simulator concatenates workloads) and
+  along a member axis; the simulator concatenates workloads) and
   de-multiplexes on completion.
 * **Deadline-aware admission** (``policy="edf"``) — WFQ's deficit
   machinery with the scan ordered earliest-absolute-deadline-first and

@@ -148,6 +148,13 @@ class CoexecKernel:
     whole, and the body writes the package's result into ``out`` (a
     tensor on the unit's device) and returns it.
 
+    ``rowwise`` declares that the body ignores ``offset`` and computes
+    each row of its output from the same row of its chunks alone. A fused
+    batch (which only all-split kernels join) then runs a member-stacked
+    ``(members, bucket, ...)`` chunk as one ``(members * bucket, ...)``
+    chunk, one body call per package; any other kernel runs once per
+    member at offset 0.
+
     Instances are hashable (units memoize their warm-up on them).
     """
 
@@ -155,6 +162,7 @@ class CoexecKernel:
     fn: Callable
     args: tuple[ArgSpec, ...]
     out: OutputSpec = OutputSpec()
+    rowwise: bool = False
 
     @property
     def all_split(self) -> bool:
@@ -222,12 +230,23 @@ def as_coexec_kernel(fn: Callable, num_args: int) -> CoexecKernel:
     """
     if isinstance(fn, CoexecKernel):
         return fn
-
-    def body(offset, *chunks, out, _fn=fn):
-        return out.copy_(_fn(offset, *chunks))
-
     args = tuple(ArgSpec(f"arg{i}") for i in range(num_args))
-    return CoexecKernel(getattr(fn, "__name__", "kernel"), body, args)
+    return CoexecKernel(getattr(fn, "__name__", "kernel"),
+                        _ReturningBody(fn), args)
+
+
+@dataclasses.dataclass(frozen=True)
+class _ReturningBody:
+    """Body of an adapted closure: its returned chunk is written to ``out``.
+
+    Equal for the same closure, so two launches of one closure get equal
+    kernels (and may fuse), as in the reference.
+    """
+
+    fn: Callable
+
+    def __call__(self, offset, *chunks, out):
+        return out.copy_(self.fn(offset, *chunks))
 
 
 # ---------------------------------------------------------------------------

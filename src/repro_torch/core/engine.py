@@ -15,7 +15,8 @@ launch. This module provides that engine for the Coexecutor Runtime:
   pull-capping);
 * the shared control plane of :class:`~repro_torch.core.exec.ExecutionLoop`
   between ``submit`` and the workers: the same loop as the reference
-  decides admission pulls, finalization and counter attribution here —
+  decides admission pulls, launch fusion + de-mux, finalization and
+  counter attribution here —
   this module contributes only the :class:`RealBackend` execution
   substrate (threads, wall clock, data-plane dispatch on
   :class:`~repro_torch.core.units.TorchUnit`\\ s, each worker on its
@@ -33,10 +34,7 @@ launch. This module provides that engine for the Coexecutor Runtime:
   copy/dispatch counters surfaced in each launch's :class:`LaunchStats`.
 
 Configuration is declarative only: build a
-:class:`~repro_torch.api.spec.CoexecSpec`. Launch fusion is not ported
-yet: the reference stacks members and wraps the kernel in ``jax.vmap``,
-which needs each hand kernel to take a leading member axis, so a spec
-with ``fuse=True`` is rejected at construction.
+:class:`~repro_torch.api.spec.CoexecSpec`.
 
 Lifecycle::
 
@@ -56,6 +54,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import dataclasses
 import threading
 import time
 from typing import Callable, Optional, Sequence
@@ -63,13 +62,14 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 
 from .admission import (AdmissionConfig, AdmissionController, AdmissionFull,
-                        LaunchShed)
-from .dataplane import DataPlaneCounters, as_coexec_kernel, make_plane
+                        LaunchShed, fusion_bucket)
+from .dataplane import (ArgSpec, CoexecKernel, DataPlaneCounters,
+                        OutputSpec, as_coexec_kernel, make_plane)
 from .exec import Backend, ExecutionLoop, LaunchState, LaunchStats
 from .memory import MemoryModel
 from .package import Package
 from .profiler import SpeedBoard
-from .scheduler import HGuidedScheduler, Scheduler
+from .scheduler import DynamicScheduler, HGuidedScheduler, Scheduler
 from .units import TorchUnit
 
 # Pre-3.11 `concurrent.futures.TimeoutError` is not the builtin; subclass
@@ -194,12 +194,77 @@ class _Launch(LaunchState):
         self.plan = None             # LaunchPlan, set by the engine
 
 
+def _fuse_key(config: AdmissionConfig, scheduler: Scheduler,
+              kernel: CoexecKernel, inputs: Sequence[np.ndarray],
+              out: np.ndarray):
+    """Coalescing key, or None when this launch is not fusion-eligible.
+
+    Eligible launches are small (≤ ``fuse_threshold`` items) with every
+    input and the output indexed by the full index space on axis 0 —
+    the shape contract that makes member stacking a pure reshape.
+    Kernels with broadcast args, halos or non-zero split axes are
+    ineligible (their operands do not stack along the member axis).
+
+    With ``config.fuse_buckets`` the key holds the power-of-2 size
+    bucket plus the per-array *trailing* shapes instead of the exact
+    shapes, so near-identical launches coalesce: members pad up to the
+    bucket along axis 0 in :meth:`RealBackend.fuse_payload` and de-mux
+    back to their exact extents in :meth:`RealBackend.commit_member`.
+    """
+    if not config.fuse or not kernel.all_split:
+        return None
+    total = scheduler.total
+    if total > config.fuse_threshold:
+        return None
+    arrs = [np.asarray(a) for a in inputs]
+    if any(a.ndim < 1 or a.shape[0] != total for a in arrs):
+        return None
+    if out.shape[0] != total:
+        return None
+    if config.fuse_buckets:
+        return (kernel, "bucket", fusion_bucket(total),
+                tuple((a.shape[1:], str(a.dtype)) for a in arrs),
+                tuple(out.shape[1:]), str(out.dtype))
+    return (kernel, total,
+            tuple((a.shape, str(a.dtype)) for a in arrs),
+            tuple(out.shape), str(out.dtype))
+
+
+@dataclasses.dataclass(frozen=True)
+class _FusedBody:
+    """Body of a fused batch: whole members at member-local offset 0.
+
+    A fused package covers whole members, so each member's chunk spans
+    its entire index space and the right kernel offset is 0; this takes
+    the place of the reference's ``jax.vmap`` over the member axis. The
+    chunks and ``out`` are member-stacked ``(members, bucket, ...)``. A
+    ``rowwise`` kernel runs them as one ``(members * bucket, ...)`` chunk
+    written straight into ``out`` (one hand-kernel launch per package);
+    any other kernel runs once per member, which keeps a body that reads
+    ``offset`` faithful to its unfused execution.
+    """
+
+    kernel: CoexecKernel
+
+    def __call__(self, offset, *chunks, out):
+        fn = self.kernel.fn
+        if self.kernel.rowwise:
+            rows = out.shape[0] * out.shape[1]
+            fn(0, *(c.view(rows, *c.shape[2:]) for c in chunks),
+               out=out.view(rows, *out.shape[2:]))
+        else:
+            for i in range(out.shape[0]):
+                fn(0, *(c[i] for c in chunks), out=out[i])
+        return out
+
+
 class RealBackend(Backend):
     """Wall-clock torch execution substrate for the shared control plane.
 
     Supplies what :class:`~repro_torch.core.exec.ExecutionLoop` cannot decide —
     real time, real dispatch through the configured data plane on each
-    unit's stream, and future resolution — while
+    unit's stream, member stacking for fused batches, and future
+    resolution — while
     every scheduling decision stays in the loop. The engine's worker
     threads call :meth:`dispatch` outside the engine lock; everything
     else runs caller-serialized like the loop itself.
@@ -317,20 +382,70 @@ class RealBackend(Backend):
 
     def fuse_payload(self, members: list[_Launch],
                      launch_id: int) -> _Launch:
-        """Fused launches are not ported yet (ROADMAP queue 1, item 4).
+        """Stack member inputs along a new leading *member* axis.
 
-        Raises:
-            NotImplementedError: always; the reference maps the kernel
-                over a member axis (``jax.vmap``) that the hand kernels
-                lack.
+        The fused index space is the member count, split across units by
+        a Dynamic scheduler with one package per unit, so N small
+        requests cost ~one dispatch per unit. One scheduler unit is one
+        member, so ``wfq_cost_scale`` converts credit back to work-items.
+
+        Args:
+            members: the staged same-shaped launches to coalesce.
+            launch_id: id assigned by the loop.
+
+        Returns:
+            The fused engine launch (tenant/weight set by the loop).
         """
-        raise NotImplementedError(
-            "launch fusion is not ported to torch yet: it needs every "
-            "kernel to take a leading member axis (ROADMAP queue 1, item 4)")
+        first = members[0]
+        # bucketed members pad along axis 0 up to the shared power-of-2
+        # bucket; exact-shape fusion has bucket == total (no padding)
+        bucket = first.fuse_bucket or max(m.scheduler.total for m in members)
+
+        def padded(a: np.ndarray) -> np.ndarray:
+            a = np.asarray(a)
+            if a.shape[0] == bucket:
+                return a
+            pad = [(0, bucket - a.shape[0])] + [(0, 0)] * (a.ndim - 1)
+            return np.pad(a, pad)
+
+        inputs = [np.stack([padded(m.inputs[j]) for m in members])
+                  for j in range(len(first.inputs))]
+        out = np.zeros((len(members), bucket, *first.out.shape[1:]),
+                       first.out.dtype)
+        n_units = len(self.units)
+        sched = DynamicScheduler(len(members), n_units,
+                                 num_packages=min(len(members), n_units))
+        kernel = CoexecKernel(
+            f"{first.kernel.name}[fused]", _FusedBody(first.kernel),
+            tuple(ArgSpec(a.name) for a in first.kernel.args),
+            OutputSpec(dtype=first.kernel.out.dtype))
+        fused = _Launch(launch_id, sched, kernel, inputs, out,
+                        adaptive=False)
+        fused.plan = self.plane.plan(kernel, inputs, out, sched.total,
+                                     units=self.units)
+        # the fused scheduler's index space is *members*; WFQ credit is
+        # accounted in work-items, so each member unit costs its whole
+        # (bucket-padded) index space — keeps engine fairness on the
+        # sim's scale, identically for exact and bucketed fusion
+        fused.wfq_cost_scale = bucket
+        fused.fuse_bucket = bucket
+        fused.member_span = 1
+        return fused
 
     def launch_counters(self, launch: _Launch) -> DataPlaneCounters:
         """The launch's data-plane accounting (from its plan)."""
         return launch.plan.counters.snapshot()
+
+    def commit_member(self, fused: _Launch, member: _Launch, index: int,
+                      cover: Package) -> None:
+        """Copy one member's output row out of the fused batch result.
+
+        Bucketed members copy only their own extent — the bucket's pad
+        rows are computed (on padded zero inputs) but never land. The
+        member's own plan never ran a package, so it is released here.
+        """
+        np.copyto(member.out, fused.out[index][:member.out.shape[0]])
+        member.plan.release()
 
     def deliver(self, launch: _Launch) -> None:
         """Resolve the launch's future with its (now written) output."""
@@ -339,6 +454,8 @@ class RealBackend(Backend):
 
     def fail(self, launch: _Launch, err: BaseException) -> None:
         """Resolve the launch's future with its failure."""
+        if launch.fused:
+            launch.plan.release()     # a member: its own plan never ran
         launch.handle._future.set_exception(err)
 
 
@@ -366,15 +483,9 @@ class CoexecEngine:
 
         Raises:
             ValueError: empty unit list or invalid spec sections.
-            NotImplementedError: the spec asks for launch fusion, which
-                is not ported yet.
         """
         if not units:
             raise ValueError("need at least one Coexecution Unit")
-        if spec is not None and spec.admission.fuse:
-            raise NotImplementedError(
-                "launch fusion (admission.fuse=True) is not ported to "
-                "torch yet (ROADMAP queue 1, item 4)")
         self.units = list(units)
         if spec is not None:
             self.spec = spec
@@ -620,6 +731,11 @@ class CoexecEngine:
             launch.weight = float(weight)
             if deadline_s is not None:
                 launch.deadline = launch.t_submit + float(deadline_s)
+            launch.fuse_key = _fuse_key(self.admission.config, scheduler,
+                                        kernel, inputs, out)
+            if launch.fuse_key is not None \
+                    and self.admission.config.fuse_buckets:
+                launch.fuse_bucket = fusion_bucket(scheduler.total)
             if not self.loop.offer(launch, now=launch.t_submit):
                 # shed: resolve the handle before returning so result()
                 # raises LaunchShed immediately instead of blocking until

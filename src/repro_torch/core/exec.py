@@ -532,8 +532,8 @@ class ExecutionLoop:
     def _materialize_fused(self, members: list[LaunchState]) -> LaunchState:
         """Coalesce staged member launches into one schedulable entry.
 
-        The backend builds the payload (the engine stacks inputs and
-        vmaps the kernel; the simulator concatenates workloads); the
+        The backend builds the payload (the engine stacks inputs along a
+        member axis; the simulator concatenates workloads); the
         shared bookkeeping — id, tenant flow, combined weight, earliest
         submit time — happens here so both substrates agree on how a
         fused batch participates in admission.

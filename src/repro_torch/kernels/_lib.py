@@ -39,6 +39,8 @@ SIGNATURES = {
     "gaussian_rows_f32": (_P, _LL, _I, _LL, _P, _LL, _P),
     "matmul_f32": (_P, _P, _P, _I, _I, _I, _P),
     "mandelbrot_f32": (_P, _P, _P, _LL, _I, _P),
+    "raytrace_f32": (_P, _P, _P, _P, _I, _P, _LL, _P),
+    "rap_f32": (_P, _P, _P, _LL, _I, _P),
     "host_register_mapped": (_P, _LL),
     "host_device_pointer": (_P, ctypes.POINTER(_P)),
     "host_unregister": (_P,),
@@ -161,20 +163,32 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
-    """Validate tensors for a kernel launch: CUDA, float32, contiguous.
+def require_cuda(name: str, *specs: tuple[torch.Tensor, torch.dtype]
+                 ) -> None:
+    """Validate tensors for a kernel launch: one CUDA device, contiguous,
+    each of the dtype it is paired with (never cast: a cast would hide a
+    wrong input).
+
+    Args:
+        name: the kernel, for the message.
+        specs: ``(tensor, expected dtype)`` pairs.
 
     Raises:
         ValueError: a tensor on another device or of another dtype, or
             tensors on different devices.
         ValueError: a non-contiguous tensor (the kernels index densely).
     """
-    dev = tensors[0].device
-    for t in tensors:
+    dev = specs[0][0].device
+    for t, dtype in specs:
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{name}: all tensors must be on one CUDA "
                              f"device, got {t.device} and {dev}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name}: expects float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: expects {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expects contiguous tensors")
+
+
+def require_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
+    """:func:`require_cuda` with every tensor float32."""
+    require_cuda(name, *((t, torch.float32) for t in tensors))

@@ -1,9 +1,14 @@
 """C = A @ B in f32 (paper benchmark: MatMul).
 
 :func:`matmul` launches the CUDA kernel in ``csrc/matmul.cu`` for CUDA
-tensors and runs :func:`matmul_plain` for CPU tensors. It replaces the
-Pallas kernel ``repro/kernels/matmul.py`` ``matmul`` (body
-``_matmul_kernel``).
+tensors; it replaces the Pallas kernel ``repro/kernels/matmul.py``
+``matmul`` (body ``_matmul_kernel``). For CPU tensors it runs the CPU's
+f32 GEMM (``torch.matmul``), as the reference's CPU unit runs XLA's GEMM
+(``ref.matmul``) outside any Pallas kernel.
+
+:func:`matmul_plain` is the k-ordered loop the CUDA kernel is held
+against (tests and ``chip_smoke.py``); nothing on the co-execution path
+calls it.
 """
 from __future__ import annotations
 
@@ -61,7 +66,9 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
     """
     M, N, K = _check_shapes(a, b, out)
     if a.device.type == "cpu":
-        return matmul_plain(a, b, out=out)
+        if out is None:
+            return torch.matmul(a, b)
+        return torch.matmul(a, b, out=out)
     if out is None:
         out = torch.empty((M, N), dtype=a.dtype, device=a.device)
     _lib.require_cuda_f32("matmul", a, b, out)

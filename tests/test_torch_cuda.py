@@ -3,21 +3,25 @@
 Every test here carries the ``cuda`` mark and skips without a GPU; on the
 card run ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 The kernels build from ``src/repro_torch/kernels/csrc`` at first use.
-Tolerances: taylor, gaussian and mandelbrot equal their plain versions
-bit for bit (the kernels use the plain versions' IEEE operations in the
-same order); matmul within rtol 1e-5, atol 1e-6 * K (FMA vs separate
-multiply and add).
+Tolerances: taylor, gaussian, mandelbrot and ray equal their plain
+versions bit for bit (the kernels use the plain versions' IEEE operations
+in the same order); matmul within rtol 1e-5, atol 1e-6 * K (FMA vs
+separate multiply and add); rap within rtol 1e-5, atol 1e-6 * L (another
+summation order).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.api import CoexecSpec, build_kernel, kernel_demo_inputs
-from repro_torch.core import CoexecutorRuntime, counits_from_devices
+from repro_torch.core import (CoexecEngine, CoexecutorRuntime,
+                              counits_from_devices)
 from repro_torch.core import dataplane
-from repro_torch.kernels import (gaussian_blur_halo, gaussian_blur_halo_plain,
-                                 mandelbrot, mandelbrot_plain, matmul,
-                                 matmul_plain, taylor_sin, taylor_sin_plain)
+from repro_torch.kernels import (demo_spheres, gaussian_blur_halo,
+                                 gaussian_blur_halo_plain, mandelbrot,
+                                 mandelbrot_plain, matmul, matmul_plain, rap,
+                                 rap_plain, raytrace, raytrace_plain,
+                                 taylor_sin, taylor_sin_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -60,9 +64,74 @@ def test_mandelbrot_equals_plain(dev):
     assert torch.equal(mandelbrot(cre, cim), mandelbrot_plain(cre, cim))
 
 
+@pytest.mark.parametrize("num", [8, 1, 300])
+def test_raytrace_equals_plain(dev, num):
+    """A 501 x 613 camera grid, so rays graze every sphere's silhouette."""
+    dy, dx = torch.meshgrid(torch.linspace(-0.4, 0.4, 501, device=dev),
+                            torch.linspace(-0.4, 0.4, 613, device=dev),
+                            indexing="ij")
+    dx, dy = dx.contiguous(), dy.contiguous()
+    dz = torch.sqrt(torch.clamp_min(1 - dx * dx - dy * dy, 0.5))
+    spheres = torch.from_numpy(demo_spheres(num, seed=5)).to(dev)
+    before = raytrace.launches
+    got = raytrace(dx, dy, dz, spheres)
+    assert raytrace.launches == before + 1
+    want = raytrace_plain(dx, dy, dz, spheres)
+    assert torch.equal(got, want)
+    assert int((want > 0).sum()) > 0        # the scene is in view
+
+
+def test_raytrace_refuses_too_many_spheres(dev):
+    x = torch.ones(4, device=dev)
+    with pytest.raises(ValueError, match="at most"):
+        raytrace(x, x, x, torch.ones(4096, 5, device=dev))
+
+
+@pytest.mark.parametrize("n,L", [(1000, 48), (37, 1), (513, 100)])
+def test_rap_close_to_plain(dev, n, L):
+    values = torch.randn(n, L, device=dev)
+    lengths = torch.randint(-3, L + 4, (n,), dtype=torch.int32, device=dev)
+    before = rap.launches
+    got = rap(values, lengths)
+    assert rap.launches == before + 1
+    torch.testing.assert_close(got, rap_plain(values, lengths),
+                               rtol=1e-5, atol=1e-6 * L)
+
+
+def test_rap_refuses_int64_lengths(dev):
+    with pytest.raises(ValueError, match="int32"):
+        rap(torch.ones(4, 3, device=dev),
+            torch.ones(4, dtype=torch.int64, device=dev))
+
+
+@pytest.mark.parametrize("memory", ["usm", "buffers"])
+@pytest.mark.parametrize("name", ["taylor", "mandelbrot", "rap", "ray"])
+def test_fused_engine_matches_unfused(dev, name, memory):
+    """Eight same-shaped launches on [cuda:0, cpu], fused and unfused."""
+    n, members = 4096, 8
+    kernel = build_kernel(name)
+    inputs = [kernel_demo_inputs(name, n, seed=i) for i in range(members)]
+    outs = {}
+    for fuse in (False, True):
+        spec = (CoexecSpec.builder().policy("dynamic").memory(memory)
+                .fuse(fuse, threshold=4096, limit=members, wait_s=5.0)
+                .build())
+        with CoexecEngine.from_spec(spec) as engine:
+            handles = [engine.submit(spec.build_scheduler(n, 2), kernel, x,
+                                     kernel.alloc_out(n, x))
+                       for x in inputs]
+            outs[fuse] = [h.result(timeout=120) for h in handles]
+            fused = engine.admission.fused_batches
+        assert fused == (1 if fuse and name != "ray" else 0)
+    tol = {"rap": (1e-5, 1e-6 * 48)}.get(name, (0.0, 0.0))
+    for a, b in zip(outs[True], outs[False]):
+        np.testing.assert_allclose(a, b, rtol=tol[0], atol=tol[1])
+    assert not dataplane._mapped
+
+
 @pytest.mark.parametrize("memory", ["usm", "buffers"])
 @pytest.mark.parametrize("name", ["taylor", "gaussian", "matmul",
-                                  "mandelbrot"])
+                                  "mandelbrot", "ray", "rap"])
 def test_coexecution_on_gpu_and_cpu(dev, name, memory):
     n = 4099
     inputs = kernel_demo_inputs(name, n, seed=1)
@@ -77,8 +146,9 @@ def test_coexecution_on_gpu_and_cpu(dev, name, memory):
         got = rt.launch(n, kernel, inputs)
         stats = rt.last_stats
     assert set(stats.unit_busy_s) == {"cuda:0", "cpu"}
-    # demo matmul inputs have K = 32
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6 * 32)
+    # demo matmul inputs have K = 32, demo rap rows L = 48
+    np.testing.assert_allclose(got, want, rtol=1e-5,
+                               atol=1e-6 * (48 if name == "rap" else 32))
     served = {p.unit for p in stats.packages}
     assert 0 in served
     if memory == "usm":

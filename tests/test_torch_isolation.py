@@ -29,8 +29,9 @@ def imported_roots(path: pathlib.Path) -> set[str]:
 
 def test_scan_covers_the_package():
     names = {p.relative_to(SRC).as_posix() for p in MODULES}
-    assert "repro_torch/core/dataplane.py" in names
-    assert "repro_torch/kernels/ops.py" in names
+    for module in ("core/dataplane.py", "core/director.py",
+                   "kernels/ops.py", "kernels/raytrace.py", "kernels/rap.py"):
+        assert f"repro_torch/{module}" in names
 
 
 @pytest.mark.parametrize("path", MODULES,

@@ -12,10 +12,17 @@ Tolerances:
   reference's oracle orders the Taylor update differently
   (``-term*x*x/(n(n+1))``) and XLA may contract multiply-adds;
 * matmul: rtol 1e-5, atol 1e-6 * K — the plain version sums in ascending
-  k with one rounding per multiply and add, XLA and Pallas in other
-  orders, so the error grows with the inner dimension;
+  k with one rounding per multiply and add, the CPU wrapper's GEMM, XLA
+  and Pallas in other orders, so the error grows with the inner
+  dimension;
 * mandelbrot: exact — escape counts are integers and every operation is
-  a single IEEE rounding in both packages.
+  a single IEEE rounding in both packages;
+* ray: atol 1e-4, with at most 0.1 % of the rays beyond it — XLA
+  contracts the dot products into FMAs, which moves ``disc`` by an ulp
+  and can flip a hit at a sphere's silhouette (the reference's own XLA
+  path and eager oracle already differ by ~1e-5);
+* rap: rtol 1e-5, atol 1e-6 * L — the same utilities summed in another
+  order.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -28,10 +35,15 @@ from repro.kernels.gaussian import gaussian_blur as pallas_gaussian
 from repro.kernels.gaussian import gaussian_blur_halo as pallas_gaussian_halo
 from repro.kernels.mandelbrot import mandelbrot as pallas_mandelbrot
 from repro.kernels.matmul import matmul as pallas_matmul
+from repro.kernels.rap import rap as pallas_rap
+from repro.kernels.raytrace import demo_spheres as ref_demo_spheres
+from repro.kernels.raytrace import raytrace as pallas_raytrace
 from repro.kernels.taylor import taylor_sin as pallas_taylor
-from repro_torch.kernels import (_lib, gaussian_blur, gaussian_blur_halo,
+from repro_torch.kernels import (_lib, demo_spheres, gaussian_blur,
+                                 gaussian_blur_halo,
                                  gaussian_blur_halo_plain, mandelbrot,
-                                 mandelbrot_plain, matmul, matmul_plain,
+                                 mandelbrot_plain, matmul, matmul_plain, rap,
+                                 rap_plain, raytrace, raytrace_plain,
                                  taylor_sin, taylor_sin_plain)
 
 rng = np.random.default_rng(2106)
@@ -97,9 +109,12 @@ def test_gaussian_rejects_rows_without_halo():
 def test_matmul_ragged_matches_reference(m, k, n):
     a = rng.normal(size=(m, k)).astype(np.float32)
     b = rng.normal(size=(k, n)).astype(np.float32)
+    before = matmul.launches
     got = matmul(t(a), t(b)).numpy()
-    np.testing.assert_array_equal(got, matmul_plain(t(a), t(b)).numpy())
+    assert matmul.launches == before      # CPU tensor: the CPU's GEMM
     atol = 1e-6 * k
+    assert_allclose(got, matmul_plain(t(a), t(b)).numpy(), rtol=1e-5,
+                    atol=atol)
     assert_allclose(got, np.asarray(ref.matmul(jnp.asarray(a),
                                                jnp.asarray(b))),
                     rtol=1e-5, atol=atol)
@@ -107,6 +122,20 @@ def test_matmul_ragged_matches_reference(m, k, n):
                                                   jnp.asarray(b), bm=32,
                                                   bn=32, bk=32)),
                     rtol=1e-5, atol=atol)
+
+
+def test_cpu_matmul_is_a_gemm_into_out():
+    """The CPU unit's matmul is one GEMM (not the k-ordered loop), written
+    into the given ``out``, and matches the reference's ``ref.matmul``."""
+    a = rng.normal(size=(96, 512)).astype(np.float32)
+    b = rng.normal(size=(512, 40)).astype(np.float32)
+    out = torch.empty(96, 40)
+    assert matmul(t(a), t(b), out=out) is out
+    np.testing.assert_array_equal(out.numpy(),
+                                  torch.matmul(t(a), t(b)).numpy())
+    assert_allclose(out.numpy(), np.asarray(ref.matmul(jnp.asarray(a),
+                                                       jnp.asarray(b))),
+                    rtol=1e-5, atol=1e-6 * 512)
 
 
 def test_matmul_rejects_mismatched_shapes():
@@ -129,6 +158,86 @@ def test_mandelbrot_is_exact(side, it):
         got, mandelbrot_plain(t(cre), t(cim), max_iter=it).numpy())
 
 
+def test_demo_spheres_equal_reference_bit_for_bit():
+    for num, seed in ((8, 3), (1, 0), (33, 7)):
+        got = demo_spheres(num, seed)
+        want = np.asarray(ref_demo_spheres(num, seed))
+        assert got.dtype == want.dtype == np.float32
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(demo_spheres(),
+                                  np.asarray(ref_demo_spheres()))
+
+
+def camera_rays(h: int, w: int):
+    """A row-major h x w grid of unit rays, as the Table 1 input is made."""
+    dx, dy = np.meshgrid(np.linspace(-0.4, 0.4, w, dtype=np.float32),
+                         np.linspace(-0.4, 0.4, h, dtype=np.float32))
+    dz = np.sqrt(np.maximum(1 - dx**2 - dy**2, 0.5)).astype(np.float32)
+    return [np.ascontiguousarray(a.ravel()) for a in (dx, dy, dz)]
+
+
+def assert_rays_close(got, want, what):
+    """atol 1e-4, except for at most 0.1 % of rays (silhouette flips)."""
+    off = np.abs(got - want) > 1e-4
+    assert off.mean() <= 1e-3, (what, int(off.sum()), got.size)
+
+
+@pytest.mark.parametrize("h,w,num", [(61, 77, 8), (40, 40, 1), (33, 129, 20)])
+def test_raytrace_matches_reference(h, w, num):
+    dx, dy, dz = camera_rays(h, w)
+    spheres = demo_spheres(num, seed=3)
+    before = raytrace.launches
+    got = raytrace(t(dx), t(dy), t(dz), t(spheres)).numpy()
+    assert raytrace.launches == before       # CPU tensor: plain version
+    np.testing.assert_array_equal(
+        got, raytrace_plain(t(dx), t(dy), t(dz), t(spheres)).numpy())
+    assert (got > 0).any() and (got == 0).any()
+    j = [jnp.asarray(a) for a in (dx, dy, dz, spheres)]
+    assert_rays_close(got, np.asarray(ref.raytrace(*j)), "ref")
+    assert_rays_close(got, np.asarray(pallas_raytrace(*j, bm=8)), "pallas")
+
+
+def test_raytrace_misses_give_zero_and_out_is_written():
+    x = t(np.array([1.0, 0.0], np.float32))
+    z = t(np.array([0.0, -1.0], np.float32))     # sideways and backwards
+    out = torch.full((2,), 7.0)
+    assert raytrace(x, t(np.zeros(2, np.float32)), z,
+                    t(demo_spheres()), out=out) is out
+    np.testing.assert_array_equal(out.numpy(), [0.0, 0.0])
+
+
+def test_raytrace_rejects_bad_table():
+    x = torch.zeros(4)
+    with pytest.raises(ValueError, match=r"\(S, 5\)"):
+        raytrace(x, x, x, torch.zeros(3, 4))
+
+
+@pytest.mark.parametrize("n,L", [(37, 48), (256, 5), (300, 1)])
+def test_rap_matches_reference(n, L):
+    values = rng.normal(size=(n, L)).astype(np.float32)
+    # every edge: 0, L, beyond L, negative, and lengths inside
+    lengths = rng.integers(-3, L + 4, size=n).astype(np.int32)
+    lengths[:4] = [0, L, L + 7, -5]
+    values[2] = values[1]
+    before = rap.launches
+    got = rap(t(values), t(lengths)).numpy()
+    assert rap.launches == before            # CPU tensor: plain version
+    np.testing.assert_array_equal(
+        got, rap_plain(t(values), t(lengths)).numpy())
+    assert got[0] == 0.0 and got[3] == 0.0
+    assert got[1] == got[2]                  # a length past L counts as L
+    j = (jnp.asarray(values), jnp.asarray(lengths))
+    atol = 1e-6 * L
+    assert_allclose(got, np.asarray(ref.rap(*j)), rtol=1e-5, atol=atol)
+    assert_allclose(got, np.asarray(pallas_rap(*j, bm=8)), rtol=1e-5,
+                    atol=atol)
+
+
+def test_rap_rejects_mismatched_lengths():
+    with pytest.raises(ValueError, match="lengths"):
+        rap(torch.zeros(4, 3), torch.zeros(5, dtype=torch.int32))
+
+
 def test_wrappers_write_into_out():
     x = t(rng.uniform(-1, 1, 50).astype(np.float32))
     out = torch.empty(50)
@@ -142,6 +251,8 @@ def test_wrappers_write_into_out():
     lambda x: mandelbrot(x, x),
     lambda x: matmul(x.view(4, 4), x.view(4, 4)),
     lambda x: gaussian_blur(x.view(4, 4)),
+    lambda x: raytrace(x, x, x, x.view(-1)[:15].view(3, 5)),
+    lambda x: rap(x.view(4, 4), x[:4].to(torch.int32)),
 ])
 def test_non_cpu_non_cuda_tensor_raises_not_falls_back(call):
     """Only a CPU tensor takes the plain version; others launch or raise."""

@@ -1,12 +1,13 @@
 """The whole slice: ``CoexecutorRuntime`` in both packages on two CPU units.
 
-For each of the four ported kernels × {usm, buffers} × pipeline depth
+For each of the six paper kernels × {usm, buffers} × pipeline depth
 {1, 2}, the same seeded demo inputs run through the reference runtime
 (JAX, two units over one CPU device) and the port's (two ``cpu`` units):
 
 * outputs agree within each kernel's tolerance (as in
   ``tests/test_torch_kernels.py``: taylor/gaussian rtol 1e-5 atol 1e-6,
-  matmul rtol 1e-5 atol 1e-6*K, mandelbrot exact);
+  matmul rtol 1e-5 atol 1e-6*K, mandelbrot exact, ray atol 1e-4 with at
+  most 0.1 % of rays beyond it, rap rtol 1e-5 atol 1e-6*L);
 * under ``static`` and ``dynamic`` the package covers and the
   ``DataPlaneCounters`` totals are equal — which unit served a dynamic
   package depends on thread timing in both packages, so covers are
@@ -30,10 +31,23 @@ from repro_torch.api import CoexecSpec, build_kernel, kernel_demo_inputs
 from repro_torch.core import (CoexecEngine, CoexecKernel, ArgSpec,
                               CoexecutorRuntime, counits_from_devices)
 
-KERNELS = ("taylor", "gaussian", "matmul", "mandelbrot")
+KERNELS = ("taylor", "gaussian", "matmul", "mandelbrot", "ray", "rap")
 N = 300          # not a power of two: uneven packages and bucket pads
 TOL = {"taylor": (1e-5, 1e-6), "gaussian": (1e-5, 1e-6),
-       "matmul": (1e-5, 1e-6 * 32), "mandelbrot": (0.0, 0.0)}
+       "matmul": (1e-5, 1e-6 * 32), "mandelbrot": (0.0, 0.0),
+       "ray": (0.0, 1e-4), "rap": (1e-5, 1e-6 * 48)}
+
+
+def assert_close(name, got, want, what=""):
+    """Within the kernel's tolerance; for ray, at most 0.1 % of the rays
+    may lie beyond it (an FMA-contracted silhouette test flips a hit)."""
+    rtol, atol = TOL[name]
+    if name == "ray":
+        off = np.abs(got - want) > atol + rtol * np.abs(want)
+        assert off.mean() <= 1e-3, (what, int(off.sum()))
+        return
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol,
+                               err_msg=what)
 
 
 def spec_of(cls, policy, memory, depth):
@@ -69,7 +83,6 @@ def cover(stats):
 @pytest.mark.parametrize("name", KERNELS)
 def test_runtime_matches_reference(name, memory, depth, ref_units,
                                    port_units):
-    rtol, atol = TOL[name]
     ref_inputs = ref_demo_inputs(name, N, seed=11)
     inputs = kernel_demo_inputs(name, N, seed=11)
     for a, b in zip(ref_inputs, inputs):
@@ -82,8 +95,7 @@ def test_runtime_matches_reference(name, memory, depth, ref_units,
         got, got_stats = launch(CoexecutorRuntime,
                                 spec_of(CoexecSpec, policy, memory, depth),
                                 port_units, build_kernel(name), inputs)
-        np.testing.assert_allclose(got, want, rtol=rtol, atol=atol,
-                                   err_msg=f"{name} {memory} {policy}")
+        assert_close(name, got, want, f"{name} {memory} {policy}")
         if policy != "hguided":
             assert cover(got_stats) == cover(want_stats), policy
             assert got_stats.data.to_dict() == want_stats.data.to_dict(), \
@@ -153,9 +165,14 @@ def test_cpu_units_are_named_and_kinded():
 
 
 def test_fusion_is_rejected_loudly(port_units):
+    """A fusing spec builds an engine; a fusion setting that cannot work
+    is refused at construction, naming the fields."""
     spec = CoexecSpec.builder().fuse(True).build()
-    with pytest.raises(NotImplementedError, match="fusion"):
-        CoexecEngine.from_spec(spec, units=port_units)
+    with CoexecEngine.from_spec(spec, units=port_units) as engine:
+        assert engine.admission.config.fuse
+    bad = spec.replace(admission=spec.admission.replace(fuse_threshold=0))
+    with pytest.raises(ValueError, match="fuse_threshold"):
+        CoexecEngine.from_spec(bad, units=port_units)
 
 
 @pytest.mark.timeout(60)
