@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
+_F = ctypes.c_float
 # argtypes of every C entry point; pointers and streams as c_void_p so
 # ctypes never truncates them to 32 bits
 SIGNATURES = {
@@ -41,6 +42,12 @@ SIGNATURES = {
     "mandelbrot_f32": (_P, _P, _P, _LL, _I, _P),
     "raytrace_f32": (_P, _P, _P, _P, _I, _P, _LL, _P),
     "rap_f32": (_P, _P, _P, _LL, _I, _P),
+    # q, k, v, out, B, Hq, Hkv, T, D, causal, window (0: none), scale
+    "flash_attention_f32": (_P, _P, _P, _P, *(_I,) * 7, _F, _P),
+    "flash_attention_bf16": (_P, _P, _P, _P, *(_I,) * 7, _F, _P),
+    # q, k, v, log_decay, out, BH, T, Dk, Dv
+    "linear_attention_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "linear_attention_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "host_register_mapped": (_P, _LL),
     "host_device_pointer": (_P, ctypes.POINTER(_P)),
     "host_unregister": (_P,),

@@ -1,0 +1,105 @@
+"""Gated linear attention / Mamba-2 SSD (the LM stack's chunked scan).
+
+:func:`linear_attention` launches the CUDA kernel in
+``csrc/linear_attention.cu`` for CUDA tensors and runs
+:func:`linear_attention_plain` for CPU tensors. It replaces the Pallas
+kernel ``repro/kernels/linear_attention.py`` ``linear_attention`` (body
+``_gla_kernel``); the plain version is the port of the reference's
+``ref.linear_attention`` oracle, the exact sequential recurrence
+
+    S_t = exp(ld_t) S_{t-1} + k_t^T v_t,    o_t = q_t S_t,
+
+per head, in f32, with the output in q's dtype. q, k: (BH, T, Dk); v:
+(BH, T, Dv); log_decay: (BH, T) f32 with entries <= 0.
+
+The kernel computes the same recurrence in chunks of 64 steps (the
+chunk-parallel form), so it sums in another order: in f32 the two agree
+within rtol = atol = 3e-4, the reference's own tolerance between its
+chunked and sequential forms; in bf16 both round the same f32 values,
+so they differ by about one bf16 ulp (rtol = atol = 2e-2).
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _lib
+
+MAX_KEY_DIM = 128      # the state update keeps 4 key rows per thread
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           log_decay: torch.Tensor) -> None:
+    if q.dim() != 3 or q.shape != k.shape:
+        raise ValueError(f"linear_attention: q and k must be one "
+                         f"(BH, T, Dk) shape, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}")
+    if v.dim() != 3 or v.shape[:2] != q.shape[:2]:
+        raise ValueError(f"linear_attention: v {tuple(v.shape)} must be "
+                         f"(BH, T, Dv) for q {tuple(q.shape)}")
+    if tuple(log_decay.shape) != tuple(q.shape[:2]):
+        raise ValueError(f"linear_attention: log_decay "
+                         f"{tuple(log_decay.shape)} must be "
+                         f"{tuple(q.shape[:2])}")
+
+
+def linear_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor,
+                           log_decay: torch.Tensor) -> torch.Tensor:
+    """The exact sequential recurrence in plain PyTorch (any device): one
+    step per time index over a (BH, Dk, Dv) f32 state."""
+    _check(q, k, v, log_decay)
+    BH, T, Dk = q.shape
+    qf, kf, vf = q.float(), k.float(), v.float()
+    decay = torch.exp(log_decay.float())
+    S = torch.zeros(BH, Dk, v.shape[-1], dtype=torch.float32,
+                    device=q.device)
+    out = torch.empty(BH, T, v.shape[-1], dtype=torch.float32,
+                      device=q.device)
+    for t in range(T):
+        S = decay[:, t, None, None] * S + \
+            kf[:, t, :, None] * vf[:, t, None, :]
+        out[:, t] = torch.einsum("bk,bkv->bv", qf[:, t], S)
+    return out.to(q.dtype)
+
+
+def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     log_decay: torch.Tensor) -> torch.Tensor:
+    """Chunked gated linear attention.
+
+    Args:
+        q, k: (BH, T, Dk) float32 or bfloat16.
+        v: (BH, T, Dv) of q's dtype.
+        log_decay: (BH, T) float32, entries <= 0.
+
+    Returns:
+        (BH, T, Dv) in q's dtype.
+
+    Raises:
+        ValueError: shape, dtype, device or contiguity the kernel does not
+            take (on CUDA also Dk > 128).
+        RuntimeError: the launch was refused.
+    """
+    _check(q, k, v, log_decay)
+    if q.device.type == "cpu":
+        return linear_attention_plain(q, k, v, log_decay)
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"linear_attention: expects float32 or bfloat16, "
+                         f"got {q.dtype}")
+    BH, T, Dk = q.shape
+    if Dk > MAX_KEY_DIM:
+        raise ValueError(f"linear_attention: key dim {Dk} > {MAX_KEY_DIM}")
+    out = torch.empty(BH, T, v.shape[-1], dtype=q.dtype, device=q.device)
+    _lib.require_cuda("linear_attention", (q, q.dtype), (k, q.dtype),
+                      (v, q.dtype), (log_decay, torch.float32),
+                      (out, q.dtype))
+    lib = _lib.library()
+    fn = (lib.linear_attention_f32 if q.dtype == torch.float32
+          else lib.linear_attention_bf16)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), log_decay.data_ptr(),
+             out.data_ptr(), BH, T, Dk, v.shape[-1], _lib.stream_of(q))
+    _lib.check(err, "linear_attention")
+    linear_attention.launches += 1
+    return out
+
+
+linear_attention.launches = 0

@@ -1,0 +1,6 @@
+"""The LM stack on PyTorch: layers, attention, Mamba-2, the model builder."""
+from .convert import params_from_numpy
+from .model import Model, build_model, count_params, param_bytes
+
+__all__ = ["Model", "build_model", "count_params", "param_bytes",
+           "params_from_numpy"]

@@ -1,0 +1,139 @@
+"""Attention layer: GQA, qk-norm, QKV bias, sliding window, RoPE, and a
+ring-buffer KV cache for decode.
+
+Training/prefill (:func:`attention_train`) goes through the flash kernel's
+wrapper (``impl="flash"``: the CUDA kernel on CUDA tensors, its plain
+version on CPU tensors) or the plain version itself (``impl="xla"``).
+Decode (:func:`attention_decode`) always uses the einsum path against the
+cache, as the reference does (one query position; no kernel). The
+reference's ``chunked_attention`` is its training path and is not ported
+yet.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..kernels import flash_attention, flash_attention_plain
+from .layers import apply_rope, dense, init_dense, init_rmsnorm, rmsnorm
+
+Params = dict
+
+
+def init_attention(generator: torch.Generator, d_model: int, num_heads: int,
+                   num_kv_heads: int, head_dim: int, *,
+                   device: torch.device, qk_norm: bool = False,
+                   qkv_bias: bool = False,
+                   dtype: torch.dtype = torch.float32) -> Params:
+    def lin(d_in, d_out, **kw):
+        return init_dense(generator, d_in, d_out, device=device, dtype=dtype,
+                          **kw)
+
+    p = {
+        "wq": lin(d_model, num_heads * head_dim, bias=qkv_bias),
+        "wk": lin(d_model, num_kv_heads * head_dim, bias=qkv_bias),
+        "wv": lin(d_model, num_kv_heads * head_dim, bias=qkv_bias),
+        "wo": lin(num_heads * head_dim, d_model,
+                  scale=(num_heads * head_dim) ** -0.5),
+    }
+    if qk_norm:
+        p["q_norm"] = init_rmsnorm(head_dim, device)
+        p["k_norm"] = init_rmsnorm(head_dim, device)
+    return p
+
+
+def _project_qkv(p: Params, x: torch.Tensor, num_heads: int,
+                 num_kv_heads: int, head_dim: int, positions: torch.Tensor,
+                 rope_freqs: Optional[torch.Tensor]):
+    """q (B, H, T, D), k and v (B, Hkv, T, D), contiguous."""
+    B, T, _ = x.shape
+    q = dense(p["wq"], x).reshape(B, T, num_heads, head_dim)
+    k = dense(p["wk"], x).reshape(B, T, num_kv_heads, head_dim)
+    v = dense(p["wv"], x).reshape(B, T, num_kv_heads, head_dim)
+    if "q_norm" in p:
+        q = rmsnorm(p["q_norm"], q)
+        k = rmsnorm(p["k_norm"], k)
+    q = q.transpose(1, 2)
+    k = k.transpose(1, 2)
+    v = v.transpose(1, 2)
+    if rope_freqs is not None:
+        q = apply_rope(q, positions[:, None, :], rope_freqs)
+        k = apply_rope(k, positions[:, None, :], rope_freqs)
+    return q.contiguous(), k.contiguous(), v.contiguous()
+
+
+def attention_train(p: Params, x: torch.Tensor, *, num_heads: int,
+                    num_kv_heads: int, head_dim: int,
+                    rope_freqs: Optional[torch.Tensor],
+                    window: Optional[int] = None, causal: bool = True,
+                    impl: str = "xla") -> torch.Tensor:
+    """Full-sequence attention (training / prefill). x: (B, T, d)."""
+    B, T, _ = x.shape
+    positions = torch.arange(T, device=x.device).expand(B, T)
+    q, k, v = _project_qkv(p, x, num_heads, num_kv_heads, head_dim,
+                           positions, rope_freqs)
+    if impl == "flash":
+        out = flash_attention(q, k, v, causal=causal, window=window)
+    elif impl == "xla":
+        out = flash_attention_plain(q, k, v, causal=causal, window=window)
+    elif impl == "chunked":
+        raise NotImplementedError(
+            "attn_impl='chunked' is the reference's training path; it waits "
+            "for the training slice (ROADMAP queue 1 item 8)")
+    else:
+        raise ValueError(f"unknown attn_impl {impl!r}; the port serves "
+                         f"'flash' and 'xla'")
+    out = out.transpose(1, 2).reshape(B, T, num_heads * head_dim)
+    return dense(p["wo"], out)
+
+
+def init_kv_cache(batch: int, num_kv_heads: int, max_len: int,
+                  head_dim: int, *, device: torch.device,
+                  dtype: torch.dtype = torch.bfloat16) -> Params:
+    """Ring-buffer cache. For SWA models max_len can be the window size;
+    ``len`` (a Python int) is the filled length, the next write slot until
+    the ring wraps."""
+    return {
+        "k": torch.zeros(batch, num_kv_heads, max_len, head_dim, dtype=dtype,
+                         device=device),
+        "v": torch.zeros(batch, num_kv_heads, max_len, head_dim, dtype=dtype,
+                         device=device),
+        "len": 0,
+    }
+
+
+def attention_decode(p: Params, x: torch.Tensor, cache: Params, *,
+                     num_heads: int, num_kv_heads: int, head_dim: int,
+                     rope_freqs: Optional[torch.Tensor],
+                     window: Optional[int] = None
+                     ) -> tuple[torch.Tensor, Params]:
+    """Single-token decode. x: (B, 1, d). Writes the new key and value
+    into the cache's ring in place (saves a copy of the whole cache per
+    step) and returns the output and the cache with ``len`` advanced."""
+    B = x.shape[0]
+    ck, cv = cache["k"], cache["v"]
+    max_len = ck.shape[2]
+    pos = cache["len"]                       # absolute position
+    positions = torch.full((B, 1), pos, device=x.device)
+    q, k, v = _project_qkv(p, x, num_heads, num_kv_heads, head_dim,
+                           positions, rope_freqs)
+    slot = pos % max_len                     # ring write (SWA wraps)
+    ck[:, :, slot] = k[:, :, 0].to(ck.dtype)
+    cv[:, :, slot] = v[:, :, 0].to(cv.dtype)
+
+    # valid slots: ages 0..min(pos, max_len - 1) relative to the new token
+    idx = torch.arange(max_len, device=x.device)
+    age = torch.remainder(slot - idx, max_len)
+    valid = age <= min(pos, max_len - 1)
+    if window is not None:
+        valid &= age < window
+
+    G = num_heads // num_kv_heads
+    qf = q.float().reshape(B, num_kv_heads, G, head_dim) * head_dim ** -0.5
+    logits = torch.einsum("bhgd,bhsd->bhgs", qf, ck.float())
+    logits = logits.masked_fill(~valid, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgs,bhsd->bhgd", probs, cv.float())
+    out = out.reshape(B, 1, num_heads * head_dim).to(x.dtype)
+    return dense(p["wo"], out), {"k": ck, "v": cv, "len": pos + 1}

@@ -1,0 +1,174 @@
+"""Mamba-2 (SSD) block, the sequence mixer of zamba2-7b.
+
+Scalar-decay state space duality: per head h with state (d_state x d_head),
+    decay_t = exp(-softplus(dt_t) * A_h)
+    S_t     = decay_t * S_{t-1} + (softplus(dt_t) * B_t)^T x_t
+    y_t     = C_t . S_t + D_h * x_t
+Training/prefill (:func:`mamba2_train`) runs the recurrence through the
+linear-attention kernel's wrapper (``impl="pallas"``: the CUDA kernel on
+CUDA tensors, its plain version on CPU tensors) or the plain version itself
+(``impl="ref"``). Decode (:func:`mamba2_decode`) updates the (H, d_state,
+d_head) f32 state, O(1) per token. The depthwise causal conv (width 4)
+before the SSD follows Mamba-2; n_groups = 1 (B and C shared by the heads).
+A_log, dt_bias, D and the norm scale are used in f32.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import linear_attention, linear_attention_plain
+from .layers import (_normal, dense, init_dense, init_rmsnorm, rmsnorm,
+                     silu, softplus)
+
+Params = dict
+
+CONV_WIDTH = 4
+
+
+def init_mamba2(generator: torch.Generator, d_model: int, d_state: int,
+                head_dim: int = 64, expand: int = 2, *,
+                device: torch.device,
+                dtype: torch.dtype = torch.float32) -> Params:
+    d_inner = expand * d_model
+    heads = d_inner // head_dim
+    conv_dim = d_inner + 2 * d_state
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        # fused input projection: [z (gate), x, B, C, dt]
+        "in_proj": init_dense(generator, d_model,
+                              2 * d_inner + 2 * d_state + heads,
+                              device=device, dtype=dtype),
+        "conv_w": _normal(generator, (CONV_WIDTH, conv_dim),
+                          0.5 / CONV_WIDTH, device),
+        "conv_b": torch.zeros(conv_dim, **f32),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, heads, **f32)),
+        "D": torch.ones(heads, **f32),
+        "dt_bias": torch.log(torch.expm1(torch.full((heads,), 0.01,
+                                                    **f32))),
+        "norm": init_rmsnorm(d_inner, device),
+        "out_proj": init_dense(generator, d_inner, d_model, device=device,
+                               scale=d_inner ** -0.5, dtype=dtype),
+    }
+
+
+def _split_proj(proj: torch.Tensor, d_inner: int, d_state: int,
+                heads: int):
+    """[z, x, B, C, dt] along the last dim."""
+    return torch.split(proj, [d_inner, d_inner, d_state, d_state, heads],
+                       dim=-1)
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv along time. x: (B, T, C); w: (W, C)."""
+    W = w.shape[0]
+    T = x.shape[1]
+    pad = F.pad(x, (0, 0, W - 1, 0))
+    out = pad[:, 0:T, :] * w[0].to(x.dtype)
+    for i in range(1, W):
+        out = out + pad[:, i:i + T, :] * w[i].to(x.dtype)
+    return out + b.to(x.dtype)
+
+
+def mamba2_train(p: Params, x: torch.Tensor, *, d_state: int,
+                 head_dim: int = 64, expand: int = 2,
+                 impl: str = "ref") -> torch.Tensor:
+    """Full-sequence SSD. x: (B, T, d_model)."""
+    Bsz, T, d_model = x.shape
+    d_inner = expand * d_model
+    heads = d_inner // head_dim
+
+    proj = dense(p["in_proj"], x)
+    z, xc, Bmat, Cmat, dt = _split_proj(proj, d_inner, d_state, heads)
+    # conv is applied over [x, B, C] jointly (Mamba-2); dt bypasses it
+    xbc = torch.cat([xc, Bmat, Cmat], dim=-1)
+    xbc = silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]))
+    xs, Bmat, Cmat = torch.split(xbc, [d_inner, d_state, d_state], dim=-1)
+
+    dt = softplus(dt.float() + p["dt_bias"])                   # (B,T,H)
+    A = torch.exp(p["A_log"])                                    # (H,)
+    log_decay = -dt * A                                          # (B,T,H)
+
+    # head-major layout for the kernel: (B*H, T, .)
+    xh = xs.reshape(Bsz, T, heads, head_dim)
+    q = Cmat[:, :, None, :].expand(Bsz, T, heads, d_state)
+    k = Bmat[:, :, None, :] * dt[..., None].to(Bmat.dtype)
+
+    def hm(a):  # (B,T,H,D) -> (B*H,T,D), contiguous
+        return a.transpose(1, 2).reshape(Bsz * heads, T, a.shape[-1])
+
+    ld = log_decay.transpose(1, 2).reshape(Bsz * heads, T)
+    if impl == "pallas":
+        y = linear_attention(hm(q), hm(k), hm(xh), ld)
+    elif impl == "ref":
+        y = linear_attention_plain(hm(q), hm(k), hm(xh), ld)
+    elif impl == "chunked":
+        raise NotImplementedError(
+            "mixer_impl='chunked' is the reference's training path; it "
+            "waits for the training slice (ROADMAP queue 1 item 8)")
+    else:
+        raise ValueError(f"unknown mixer_impl {impl!r}; the port serves "
+                         f"'pallas' and 'ref'")
+    y = y.reshape(Bsz, heads, T, head_dim).transpose(1, 2)       # (B,T,H,D)
+    y = y + p["D"].to(y.dtype)[None, None, :, None] * xh
+    y = y.reshape(Bsz, T, d_inner)
+    y = rmsnorm(p["norm"], y) * silu(z)
+    return dense(p["out_proj"], y)
+
+
+def init_mamba2_cache(batch: int, d_model: int, d_state: int,
+                      head_dim: int = 64, expand: int = 2, *,
+                      device: torch.device,
+                      dtype: torch.dtype = torch.float32) -> Params:
+    d_inner = expand * d_model
+    heads = d_inner // head_dim
+    conv_dim = d_inner + 2 * d_state
+    return {
+        "state": torch.zeros(batch, heads, d_state, head_dim, dtype=dtype,
+                             device=device),
+        "conv": torch.zeros(batch, CONV_WIDTH - 1, conv_dim, dtype=dtype,
+                            device=device),
+    }
+
+
+def mamba2_decode(p: Params, x: torch.Tensor, cache: Params, *,
+                  d_state: int, head_dim: int = 64, expand: int = 2
+                  ) -> tuple[torch.Tensor, Params]:
+    """One-token step. x: (B, 1, d_model)."""
+    Bsz, _, d_model = x.shape
+    d_inner = expand * d_model
+    heads = d_inner // head_dim
+
+    proj = dense(p["in_proj"], x)
+    z, xc, Bmat, Cmat, dt = _split_proj(proj, d_inner, d_state, heads)
+    xbc = torch.cat([xc, Bmat, Cmat], dim=-1)
+
+    # rolling conv buffer, read back in the activations' dtype
+    hist = torch.cat([cache["conv"].to(xbc.dtype), xbc], dim=1)
+    w = p["conv_w"]
+    conv = hist[:, 0, :] * w[0].to(xbc.dtype)
+    for i in range(1, CONV_WIDTH):
+        conv = conv + hist[:, i, :] * w[i].to(xbc.dtype)
+    conv = conv + p["conv_b"].to(xbc.dtype)
+    xc1 = silu(conv)[:, None, :]
+    new_conv = hist[:, 1:, :].to(cache["conv"].dtype)
+
+    xs, Bm, Cm = torch.split(xc1, [d_inner, d_state, d_state], dim=-1)
+    dt = softplus(dt.float() + p["dt_bias"])                   # (B,1,H)
+    A = torch.exp(p["A_log"])
+    decay = torch.exp(-dt * A)[:, 0, :]                          # (B,H)
+
+    xh = xs.reshape(Bsz, heads, head_dim).float()
+    Bv = Bm[:, 0, :].float()                                     # (B,S)
+    Cv = Cm[:, 0, :].float()
+    dtv = dt[:, 0, :]                                            # (B,H)
+
+    # S <- decay S + (dt B)^T x
+    S = cache["state"] * decay[..., None, None]
+    S = S + (dtv[..., None] * Bv[:, None, :])[..., None] * xh[:, :, None, :]
+    y = torch.einsum("bs,bhsd->bhd", Cv, S)
+    y = y + p["D"][None, :, None] * xh
+    y = y.reshape(Bsz, 1, d_inner).to(x.dtype)
+    y = rmsnorm(p["norm"], y) * silu(z)
+    return dense(p["out_proj"], y), {"state": S, "conv": new_conv}

@@ -9,6 +9,8 @@ in the same order); matmul within rtol 1e-5, atol 1e-6 * K (FMA vs
 separate multiply and add); rap within rtol 1e-5, atol 1e-6 * L (another
 summation order).
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -17,8 +19,10 @@ from repro_torch.api import CoexecSpec, build_kernel, kernel_demo_inputs
 from repro_torch.core import (CoexecEngine, CoexecutorRuntime,
                               counits_from_devices)
 from repro_torch.core import dataplane
-from repro_torch.kernels import (demo_spheres, gaussian_blur_halo,
-                                 gaussian_blur_halo_plain, mandelbrot,
+from repro_torch.kernels import (demo_spheres, flash_attention,
+                                 flash_attention_plain, gaussian_blur_halo,
+                                 gaussian_blur_halo_plain, linear_attention,
+                                 linear_attention_plain, mandelbrot,
                                  mandelbrot_plain, matmul, matmul_plain, rap,
                                  rap_plain, raytrace, raytrace_plain,
                                  taylor_sin, taylor_sin_plain)
@@ -156,3 +160,105 @@ def test_coexecution_on_gpu_and_cpu(dev, name, memory):
     else:
         assert stats.data.d2h_copies == stats.num_packages
     assert not dataplane._mapped      # every mapped range was released
+
+
+# -- the LM stack's kernels: flash attention and linear attention ---------
+# Tolerances (stated in the kernel modules): f32 within 2e-5 (flash) and
+# 3e-4 (linear attention, the reference's chunked-vs-sequential bound);
+# bf16 outputs within 2e-2, about one bf16 ulp of the same f32 value.
+
+def _lm_tol(dtype, f32_tol):
+    return (f32_tol, f32_tol) if dtype == torch.float32 else (2e-2, 2e-2)
+
+
+@pytest.mark.parametrize("b,hq,hkv,t,d,causal,window,dtype", [
+    (1, 4, 4, 200, 112, True, None, torch.float32),
+    (2, 4, 2, 130, 64, True, 32, torch.float32),
+    (1, 8, 1, 77, 16, False, None, torch.float32),
+    (1, 2, 2, 1500, 64, False, None, torch.float32),
+    (1, 4, 4, 300, 128, False, 48, torch.bfloat16),
+    (2, 8, 8, 256, 112, True, 100, torch.bfloat16),
+])
+def test_flash_attention_close_to_plain(dev, b, hq, hkv, t, d, causal,
+                                        window, dtype):
+    g = torch.Generator(device=dev).manual_seed(11)
+    q = torch.randn(b, hq, t, d, generator=g, device=dev).to(dtype)
+    k = torch.randn(b, hkv, t, d, generator=g, device=dev).to(dtype)
+    v = torch.randn(b, hkv, t, d, generator=g, device=dev).to(dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    rtol, atol = _lm_tol(dtype, 2e-5)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("bh,t,dk,dv,dtype", [
+    (3, 200, 16, 16, torch.float32),
+    (3, 64, 32, 48, torch.float32),
+    (4, 333, 64, 64, torch.float32),
+    (2, 130, 128, 40, torch.float32),
+    (2, 256, 64, 64, torch.bfloat16),
+])
+def test_linear_attention_close_to_plain(dev, bh, t, dk, dv, dtype):
+    g = torch.Generator(device=dev).manual_seed(12)
+    q = torch.randn(bh, t, dk, generator=g, device=dev).to(dtype)
+    k = (0.2 * torch.randn(bh, t, dk, generator=g, device=dev)).to(dtype)
+    v = torch.randn(bh, t, dv, generator=g, device=dev).to(dtype)
+    ld = -(0.1 * torch.randn(bh, t, generator=g, device=dev)).abs()
+    before = linear_attention.launches
+    got = linear_attention(q, k, v, ld)
+    assert linear_attention.launches == before + 1
+    want = linear_attention_plain(q, k, v, ld)
+    rtol, atol = _lm_tol(dtype, 3e-4)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+def test_linear_attention_steep_decays_stay_finite(dev):
+    """Mamba-2-like decays: the cumulative log-decay falls below -100
+    within one chunk, where a growth exp(cum_i - cum_j), i < j, is inf."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    bh, t, dk, dv = 4, 256, 64, 64
+    q = torch.randn(bh, t, dk, generator=g, device=dev)
+    k = torch.randn(bh, t, dk, generator=g, device=dev)
+    v = torch.randn(bh, t, dv, generator=g, device=dev)
+    ld = -4.0 * torch.rand(bh, t, generator=g, device=dev)
+    got = linear_attention(q, k, v, ld)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, linear_attention_plain(q, k, v, ld),
+                               rtol=3e-4, atol=3e-4)
+
+
+def test_lm_kernels_refuse_other_dtypes(dev):
+    x = torch.ones(1, 2, 8, 16, dtype=torch.float16, device=dev)
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash_attention(x, x, x)
+    q = torch.ones(1, 2, 8, 16, device=dev)
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash_attention(q, q.to(torch.bfloat16), q)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(*(torch.ones(1, 1, 4, 192, device=dev),) * 3)
+    a = torch.ones(2, 8, 16, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        linear_attention(a, a, a, torch.zeros(2, 8, dtype=torch.float64,
+                                               device=dev))
+
+
+def test_lm_kernels_never_run_the_plain_version_on_cuda(dev, monkeypatch):
+    # the package exports the wrappers under the modules' own names
+    fa_mod = importlib.import_module("repro_torch.kernels.flash_attention")
+    la_mod = importlib.import_module("repro_torch.kernels.linear_attention")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(fa_mod, "flash_attention_plain", refuse)
+    monkeypatch.setattr(la_mod, "linear_attention_plain", refuse)
+    x = torch.randn(1, 2, 64, 32, device=dev)
+    assert fa_mod.flash_attention(x, x, x).shape == x.shape
+    a = torch.randn(2, 64, 16, device=dev)
+    ld = torch.zeros(2, 64, device=dev)
+    assert la_mod.linear_attention(a, a, a, ld).shape == a.shape

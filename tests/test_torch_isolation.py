@@ -30,7 +30,10 @@ def imported_roots(path: pathlib.Path) -> set[str]:
 def test_scan_covers_the_package():
     names = {p.relative_to(SRC).as_posix() for p in MODULES}
     for module in ("core/dataplane.py", "core/director.py",
-                   "kernels/ops.py", "kernels/raytrace.py", "kernels/rap.py"):
+                   "kernels/ops.py", "kernels/raytrace.py", "kernels/rap.py",
+                   "configs/base.py", "models/model.py", "models/convert.py",
+                   "kernels/flash_attention.py",
+                   "kernels/linear_attention.py", "launch/serve.py"):
         assert f"repro_torch/{module}" in names
 
 
@@ -43,7 +46,8 @@ def test_module_imports_neither_jax_nor_reference(path):
 
 def test_import_leaves_no_jax_or_reference_in_sys_modules():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels, "
-            "repro_torch.api\n"
+            "repro_torch.api, repro_torch.configs, repro_torch.models, "
+            "repro_torch.launch.serve\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad); sys.exit(1 if bad else 0)\n")
