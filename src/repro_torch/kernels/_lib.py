@@ -38,7 +38,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "taylor_sin_f32": (_P, _P, _LL, _I, _P),
     "gaussian_rows_f32": (_P, _LL, _I, _LL, _P, _LL, _P),
-    "matmul_f32": (_P, _P, _P, _I, _I, _I, _P),
+    # a, b, c, M, N, K, tile rows, tile columns
+    "matmul_f32": (_P, _P, _P, *(_I,) * 5, _P),
     "mandelbrot_f32": (_P, _P, _P, _LL, _I, _P),
     "raytrace_f32": (_P, _P, _P, _P, _I, _P, _LL, _P),
     "rap_f32": (_P, _P, _P, _LL, _I, _P),

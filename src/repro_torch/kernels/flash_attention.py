@@ -9,14 +9,17 @@ kernel ``repro/kernels/flash_attention.py`` ``flash_attention`` (body
 
 q is (B, Hq, T, D), k and v (B, Hkv, T, D) with Hq a multiple of Hkv
 (grouped-query heads: q head h reads kv head h // (Hq // Hkv)). The scale
-is D^-1/2, applied to q in f32 before QK^T; scores, softmax and PV run in
-f32 and the output takes q's dtype (f32 or bf16). Query i attends key j
-when j <= i under ``causal`` and i - j < ``window`` when a window is given.
+is D^-1/2; scores, softmax and PV run in f32 and the output takes q's
+dtype (f32 or bf16). Query i attends key j when j <= i under ``causal``
+and i - j < ``window`` when a window is given.
 
-The kernel sums in another order than the plain version: in f32 the two
-agree within rtol = atol = 2e-5 at small T (5e-5 at T = 8192); in bf16
-both round the same f32 values, so they differ by at most about one bf16
-ulp (rtol = atol = 2e-2).
+f32 inputs run on the CUDA cores: q is scaled in f32 before QK^T, and
+the kernel agrees with the plain version within rtol = atol = 2e-5 at
+small T (5e-5 at T = 8192), another summation order. bf16 inputs run on
+the tensor cores: QK^T's products are exact in f32, the scale applies to
+the f32 scores, and P is rounded to bf16 before PV (the one rounding the
+plain f32 function lacks, 2^-9 relative per weight); with the output
+rounded to bf16 the two agree within rtol = atol = 2e-2.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ import torch
 
 from . import _lib
 
-MAX_HEAD_DIM = 128     # the kernel keeps 16 output columns per thread
+MAX_HEAD_DIM = 128     # the kernels keep D <= 128 output columns on chip
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

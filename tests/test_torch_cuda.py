@@ -5,9 +5,8 @@ card run ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 The kernels build from ``src/repro_torch/kernels/csrc`` at first use.
 Tolerances: taylor, gaussian, mandelbrot and ray equal their plain
 versions bit for bit (the kernels use the plain versions' IEEE operations
-in the same order); matmul within rtol 1e-5, atol 1e-6 * K (FMA vs
-separate multiply and add); rap within rtol 1e-5, atol 1e-6 * L (another
-summation order).
+in the same order), and so does matmul (one fmaf per k in ascending k);
+rap within rtol 1e-5, atol 1e-6 * L (another summation order).
 """
 import importlib
 
@@ -19,6 +18,7 @@ from repro_torch.api import CoexecSpec, build_kernel, kernel_demo_inputs
 from repro_torch.core import (CoexecEngine, CoexecutorRuntime,
                               counits_from_devices)
 from repro_torch.core import dataplane
+from repro_torch.kernels.matmul import TILES
 from repro_torch.kernels import (demo_spheres, flash_attention,
                                  flash_attention_plain, gaussian_blur_halo,
                                  gaussian_blur_halo_plain, linear_attention,
@@ -28,6 +28,7 @@ from repro_torch.kernels import (demo_spheres, flash_attention,
                                  taylor_sin, taylor_sin_plain)
 
 pytestmark = pytest.mark.cuda
+matmul_mod = importlib.import_module("repro_torch.kernels.matmul")
 
 
 @pytest.fixture
@@ -52,12 +53,28 @@ def test_gaussian_equals_plain(dev, lo, hi):
                        gaussian_blur_halo_plain(img, lo_pad=lo, hi_pad=hi))
 
 
-@pytest.mark.parametrize("m,k,n", [(65, 129, 63), (1, 7, 300), (256, 64, 5)])
-def test_matmul_close_to_plain(dev, m, k, n):
+@pytest.mark.parametrize("tile", [None, *TILES])
+@pytest.mark.parametrize("m,k,n,offset", [
+    (65, 129, 63, 0), (1, 7, 300, 0), (256, 64, 5, 0),
+    (1, 129, 300, 0), (50, 129, 300, 0), (127, 129, 300, 0),
+    (129, 129, 300, 0), (1024, 129, 300, 0), (129, 33, 301, 0),
+    (129, 129, 300, 1),
+])
+def test_matmul_close_to_plain(dev, monkeypatch, m, k, n, offset, tile):
+    """Bit for bit: one fmaf per k in ascending k, as the plain version.
+
+    ``tile`` forces each block tile the kernel has (None: ``tile_for``'s
+    own pick); ``offset`` shifts B by one float, so its rows lose their
+    16-byte alignment and the kernel takes its 4-byte copies.
+    """
+    if tile is not None:
+        monkeypatch.setattr(matmul_mod, "tile_for", lambda *_: tile)
     a = torch.randn(m, k, device=dev)
-    b = torch.randn(k, n, device=dev)
-    torch.testing.assert_close(matmul(a, b), matmul_plain(a, b),
-                               rtol=1e-5, atol=1e-6 * k)
+    b = torch.randn(k * n + offset, device=dev)[offset:].view(k, n)
+    before = matmul.launches
+    got = matmul(a, b)
+    assert matmul.launches == before + 1
+    torch.testing.assert_close(got, matmul_plain(a, b), rtol=0, atol=0)
 
 
 def test_mandelbrot_equals_plain(dev):
@@ -165,7 +182,9 @@ def test_coexecution_on_gpu_and_cpu(dev, name, memory):
 # -- the LM stack's kernels: flash attention and linear attention ---------
 # Tolerances (stated in the kernel modules): f32 within 2e-5 (flash) and
 # 3e-4 (linear attention, the reference's chunked-vs-sequential bound);
-# bf16 outputs within 2e-2, about one bf16 ulp of the same f32 value.
+# bf16 outputs within 2e-2: a bf16 ulp or two (flash rounds P to bf16
+# before P V on the tensor cores; linear attention rounds the same f32
+# value).
 
 def _lm_tol(dtype, f32_tol):
     return (f32_tol, f32_tol) if dtype == torch.float32 else (2e-2, 2e-2)
@@ -178,6 +197,18 @@ def _lm_tol(dtype, f32_tol):
     (1, 2, 2, 1500, 64, False, None, torch.float32),
     (1, 4, 4, 300, 128, False, 48, torch.bfloat16),
     (2, 8, 8, 256, 112, True, 100, torch.bfloat16),
+    # bf16 runs on the tensor cores: every padded head dim, ragged T,
+    # GQA 8/1, a window shorter than a key tile
+    (1, 4, 4, 77, 16, True, None, torch.bfloat16),
+    (2, 4, 2, 200, 64, True, None, torch.bfloat16),
+    (1, 2, 2, 1500, 64, False, None, torch.bfloat16),
+    (1, 4, 4, 200, 72, True, None, torch.bfloat16),
+    (1, 4, 4, 200, 72, False, 40, torch.bfloat16),
+    (1, 8, 1, 200, 112, True, None, torch.bfloat16),
+    (1, 8, 1, 77, 128, False, None, torch.bfloat16),
+    (2, 4, 4, 200, 128, True, 20, torch.bfloat16),
+    (1, 4, 2, 130, 40, False, 20, torch.bfloat16),
+    (1, 2, 2, 100, 33, True, None, torch.bfloat16),   # 2-byte copies
 ])
 def test_flash_attention_close_to_plain(dev, b, hq, hkv, t, d, causal,
                                         window, dtype):
@@ -193,6 +224,18 @@ def test_flash_attention_close_to_plain(dev, b, hq, hkv, t, d, causal,
     rtol, atol = _lm_tol(dtype, 2e-5)
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_one_key_rows_copy_v(dev, dtype):
+    """Causal with window = 1: each row reaches exactly its own key, the
+    fewest a row can reach (with Tq == Tk and window >= 1 no row reaches
+    none), so its output is that key's v row, bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    q, k, v = (torch.randn(1, 4, 150, 64, generator=g, device=dev)
+               .to(dtype) for _ in range(3))
+    got = flash_attention(q, k, v, causal=True, window=1)
+    assert torch.equal(got, v)
 
 
 @pytest.mark.parametrize("bh,t,dk,dv,dtype", [

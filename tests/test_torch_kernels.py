@@ -24,6 +24,8 @@ Tolerances:
 * rap: rtol 1e-5, atol 1e-6 * L — the same utilities summed in another
   order.
 """
+import importlib
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -45,6 +47,9 @@ from repro_torch.kernels import (_lib, demo_spheres, gaussian_blur,
                                  mandelbrot_plain, matmul, matmul_plain, rap,
                                  rap_plain, raytrace, raytrace_plain,
                                  taylor_sin, taylor_sin_plain)
+from repro_torch.kernels.matmul import H100_SMS, TILES, tile_for
+
+_mm = importlib.import_module("repro_torch.kernels.matmul")
 
 rng = np.random.default_rng(2106)
 
@@ -141,6 +146,68 @@ def test_cpu_matmul_is_a_gemm_into_out():
 def test_matmul_rejects_mismatched_shapes():
     with pytest.raises(ValueError, match="compose"):
         matmul(torch.zeros(3, 4), torch.zeros(5, 2))
+
+
+def _blocks(m: int, n: int, tile: tuple[int, int]) -> int:
+    return -(-m // tile[0]) * -(-n // tile[1])
+
+
+@pytest.mark.parametrize("m,n", [
+    (1, 300), (1, 4864), (50, 4864), (50, 300), (127, 300), (129, 300),
+    (608, 4864), (1024, 300), (1024, 4864), (4864, 4864), (300_000, 64),
+    (7, 7), (2200, 1000), (3000, 600),
+])
+def test_matmul_tile_for_fills_the_sms(m, n):
+    """The CUDA kernel's block tile: the largest of TILES whose grid has
+    at least one block per SM, the smallest when none has."""
+    tile = tile_for(m, n)
+    assert tile in TILES
+    bm, bn = tile
+    gm, gn = -(-m // bm), -(-n // bn)
+    # the grid covers the output, and every block owns a row and a column
+    assert (gm - 1) * bm < m <= gm * bm and (gn - 1) * bn < n <= gn * bn
+    if _blocks(m, n, TILES[-1]) >= H100_SMS:
+        assert _blocks(m, n, tile) >= H100_SMS
+    for larger in TILES[:TILES.index(tile)]:
+        assert _blocks(m, n, larger) < H100_SMS
+
+
+@pytest.mark.parametrize("m,n,tile", [
+    (4864, 4864, (128, 128)), (1024, 1024, (64, 64)), (50, 4864, (32, 64)),
+])
+def test_matmul_passes_its_tile_to_the_kernel_entry(monkeypatch, m, n,
+                                                    tile):
+    """On a device tensor the wrapper hands the C entry the shapes and the
+    tile that tile_for picks for the card's SM count, and counts one
+    launch. The entry and the device checks are stubbed: only the
+    wrapper's dispatch runs here."""
+    calls = []
+
+    class Lib:
+        def matmul_f32(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(_mm._lib, "require_cuda_f32", lambda *a: None)
+    monkeypatch.setattr(_mm._lib, "library", Lib)
+    monkeypatch.setattr(_mm._lib, "stream_of", lambda x: 7)
+    monkeypatch.setattr(_mm, "_sm_count", lambda device: H100_SMS)
+    k = 129
+    a = torch.empty(m, k, device="meta")
+    b = torch.empty(k, n, device="meta")
+    before = matmul.launches
+    out = matmul(a, b)
+    assert tuple(out.shape) == (m, n) and matmul.launches == before + 1
+    assert len(calls) == 1 and calls[0][3:] == (m, n, k, *tile, 7)
+    assert tile_for(m, n) == tile
+
+
+def test_matmul_tile_for_main_path_shapes():
+    """The whole Table 1 launch takes 128 x 128; a dynamic package of ~50
+    rows takes 32 x 64 (152 blocks where 64 x 64 gives 76)."""
+    assert tile_for(4864, 4864) == (128, 128)
+    assert tile_for(50, 4864) == (32, 64)
+    assert tile_for(50, 4864, sms=64) == (64, 64)
 
 
 @pytest.mark.parametrize("side,it", [(31, 32), (64, 64)])
