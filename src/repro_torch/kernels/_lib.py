@@ -4,9 +4,9 @@ Every source compiles with its own ``nvcc`` process, all started together,
 into an object file; the objects link into one shared library with a plain
 C interface that :mod:`ctypes` loads. The build happens at first use, into
 ``build/kernels/`` at the root of the checkout, under a name derived from
-the sources and flags, so an edited source is never served stale. Nothing
-here runs at import time: a machine without ``nvcc`` can import the port
-and run its plain versions.
+the sources, the headers they include (``csrc/*.cuh``) and the flags, so
+an edited file is never served stale. Nothing here runs at import time: a
+machine without ``nvcc`` can import the port and run its plain versions.
 
 Each C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises when that is not 0, because a refused launch never
@@ -46,9 +46,9 @@ SIGNATURES = {
     # q, k, v, out, B, Hq, Hkv, T, D, causal, window (0: none), scale
     "flash_attention_f32": (_P, _P, _P, _P, *(_I,) * 7, _F, _P),
     "flash_attention_bf16": (_P, _P, _P, _P, *(_I,) * 7, _F, _P),
-    # q, k, v, log_decay, out, BH, T, Dk, Dv
+    # q, k, v, log_decay, out, BH, T, Dk, Dv (bf16: then the Dv tile)
     "linear_attention_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "linear_attention_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "linear_attention_bf16": (_P, _P, _P, _P, _P, *(_I,) * 5, _P),
     "host_register_mapped": (_P, _LL),
     "host_device_pointer": (_P, ctypes.POINTER(_P)),
     "host_unregister": (_P,),
@@ -80,8 +80,9 @@ def _sources() -> list[pathlib.Path]:
 
 
 def _digest() -> str:
+    """Hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted([*_sources(), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

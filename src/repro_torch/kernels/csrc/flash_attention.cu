@@ -56,6 +56,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tensor_core.cuh"
+
 namespace {
 
 constexpr int BQ = 64;        // queries per block
@@ -228,92 +230,13 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 }
 
 // ---- bf16 on the tensor cores ----------------------------------------------
-namespace tc {
+namespace tensor_core {
 
-using bf16 = __nv_bfloat16;
+using namespace ::tc;
 constexpr int BQ = 64;              // queries per block, 16 per warp
 constexpr int BKV = 64;             // keys per tile
 constexpr int THREADS = 128;        // 4 warps
 constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// Copy `bytes` (16 or 0) of global memory into 16 bytes of shared memory,
-// zero-filling what is not copied.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   saddr(dst)),
-               "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix
-// i, and lane l receives row l / 4, columns 2 (l % 4) and + 1 of each
-// (with .trans: column l / 4, rows 2 (l % 4) and + 1).
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(saddr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-      "{%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(saddr(p)));
-}
-
-// c (16x8, f32) += a (16x16, bf16, row) * b (16x8, bf16, col). Lane l
-// holds c at rows l / 4 and l / 4 + 8, columns 2 (l % 4) and + 1. Not
-// volatile: it reads and writes registers only, so the compiler may move
-// it (the ldmatrix reads of shared memory stay volatile).
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
-// Rows [row0, row0 + 64) of a (T, D) bf16 matrix into a tile of stride
-// DP + 8, rows at or past T zero-filled. `vec`: 16-byte copies (D % 8 == 0
-// and the base 16-byte aligned), else element by element.
-template <int DP>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
-                                          int row0, int T, int D, bool vec) {
-  constexpr int LD = DP + 8;
-  if (vec) {
-    const int chunks = D / 8;
-    for (int i = threadIdx.x; i < 64 * chunks; i += THREADS) {
-      const int r = i / chunks, c = (i - r * chunks) * 8;
-      const bool ok = row0 + r < T;
-      cp_async16(dst + r * LD + c,
-                 ok ? src + (long long)(row0 + r) * D + c : src,
-                 ok ? 16 : 0);
-    }
-  } else {
-    for (int i = threadIdx.x; i < 64 * D; i += THREADS) {
-      const int r = i / D, c = i - r * D;
-      dst[r * LD + c] = row0 + r < T ? src[(long long)(row0 + r) * D + c]
-                                     : __float2bfloat16(0.0f);
-    }
-  }
-}
 
 template <int DP>
 __global__ void __launch_bounds__(THREADS, 2)
@@ -353,9 +276,9 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int i = tid; i < (BQ + 4 * BKV) * pad; i += THREADS)
       Qs[(i / pad) * LD + D + i % pad] = __float2bfloat16(0.0f);
   }
-  load_rows<DP>(Qs, qh, q0, T, D, vec);
-  load_rows<DP>(Ks, kh, t_first * BKV, T, D, vec);
-  load_rows<DP>(Vs, vh, t_first * BKV, T, D, vec);
+  load_rows<BKV, THREADS>(Qs, DP + 8, qh, D, q0, T, D, vec);
+  load_rows<BKV, THREADS>(Ks, DP + 8, kh, D, t_first * BKV, T, D, vec);
+  load_rows<BKV, THREADS>(Vs, DP + 8, vh, D, t_first * BKV, T, D, vec);
   cp_async_commit();
 
   const float sl2 = scale * LOG2E;  // exp(x * scale) = exp2(x * sl2)
@@ -371,8 +294,10 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int buf = (t - t_first) & 1;
     if (t < t_last) {
       const int nxt = (buf ^ 1) * BKV * LD;
-      load_rows<DP>(Ks + nxt, kh, (t + 1) * BKV, T, D, vec);
-      load_rows<DP>(Vs + nxt, vh, (t + 1) * BKV, T, D, vec);
+      load_rows<BKV, THREADS>(Ks + nxt, DP + 8, kh, D, (t + 1) * BKV, T, D,
+                              vec);
+      load_rows<BKV, THREADS>(Vs + nxt, DP + 8, vh, D, (t + 1) * BKV, T, D,
+                              vec);
       cp_async_commit();
       cp_async_wait<1>();            // tile t has landed, t + 1 in flight
     } else {
@@ -550,7 +475,7 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B,
 #undef FLASH_TC
 }
 
-}  // namespace tc
+}  // namespace tensor_core
 
 }  // namespace
 
@@ -566,6 +491,6 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* out, int B, int Hq,
                                     int Hkv, int seq, int D, int causal,
                                     int window, float scale, void* stream) {
-  return tc::dispatch(q, k, v, out, B, Hq, Hkv, seq, D, causal, window,
+  return tensor_core::dispatch(q, k, v, out, B, Hq, Hkv, seq, D, causal, window,
                       scale, stream);
 }

@@ -13,10 +13,14 @@ per head, in f32, with the output in q's dtype. q, k: (BH, T, Dk); v:
 (BH, T, Dv); log_decay: (BH, T) f32 with entries <= 0.
 
 The kernel computes the same recurrence in chunks of 64 steps (the
-chunk-parallel form), so it sums in another order: in f32 the two agree
-within rtol = atol = 3e-4, the reference's own tolerance between its
-chunked and sequential forms; in bf16 both round the same f32 values,
-so they differ by about one bf16 ulp (rtol = atol = 2e-2).
+chunk-parallel form), so it sums in another order: in f32 (CUDA cores)
+the two agree within rtol = atol = 3e-4, the reference's own tolerance
+between its chunked and sequential forms. bf16 inputs run on the tensor
+cores: the carried state stays f32, and every f32 operand of a product
+(the state, the decayed scores A, the decay-weighted keys K o w) enters
+as a bf16 hi + lo pair (about 2^-16 relative); with the output rounded
+to bf16 the two agree within rtol = atol = 2e-2 and 1e-2 relative L2 per
+row.
 """
 from __future__ import annotations
 
@@ -24,7 +28,24 @@ import torch
 
 from . import _lib
 
-MAX_KEY_DIM = 128      # the state update keeps 4 key rows per thread
+MAX_KEY_DIM = 128      # the kernels keep the (Dk, Dv tile) state on chip
+
+
+def dv_tile_for(Dk: int, Dv: int) -> int:
+    """Dv columns per block of the bf16 kernel: 64, so that a head's
+    scores are formed once, unless Dk > 64 (32 keeps the state's registers
+    in bounds) or Dv <= 32. A split of Dv = 64 into two 32-column tiles,
+    to double the blocks of a small batch, is slower on an H100
+    (``chip_smoke.py`` times both).
+
+    Args:
+        Dk: key dim.
+        Dv: value dim.
+
+    Returns:
+        32 or 64.
+    """
+    return 32 if Dk > 64 or Dv <= 32 else 64
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -93,10 +114,13 @@ def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       (v, q.dtype), (log_decay, torch.float32),
                       (out, q.dtype))
     lib = _lib.library()
-    fn = (lib.linear_attention_f32 if q.dtype == torch.float32
-          else lib.linear_attention_bf16)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), log_decay.data_ptr(),
-             out.data_ptr(), BH, T, Dk, v.shape[-1], _lib.stream_of(q))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), log_decay.data_ptr(),
+            out.data_ptr(), BH, T, Dk, v.shape[-1])
+    if q.dtype == torch.float32:
+        err = lib.linear_attention_f32(*args, _lib.stream_of(q))
+    else:
+        err = lib.linear_attention_bf16(
+            *args, dv_tile_for(Dk, v.shape[-1]), _lib.stream_of(q))
     _lib.check(err, "linear_attention")
     linear_attention.launches += 1
     return out

@@ -29,6 +29,7 @@ from repro_torch.kernels import (demo_spheres, flash_attention,
 
 pytestmark = pytest.mark.cuda
 matmul_mod = importlib.import_module("repro_torch.kernels.matmul")
+la_mod = importlib.import_module("repro_torch.kernels.linear_attention")
 
 
 @pytest.fixture
@@ -44,6 +45,48 @@ def test_taylor_equals_plain(dev):
     got = taylor_sin(x)
     assert taylor_sin.launches == before + 1
     assert torch.equal(got, taylor_sin_plain(x))
+
+
+def _same_bits(a, b):
+    """Equal bit for bit, any NaN matching any NaN."""
+    return bool(((a.view(torch.int32) == b.view(torch.int32))
+                 | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _taylor_inputs(dev, n=10_007):
+    """[-3, 3] with f32's edges mixed in: zeros, subnormals, the smallest
+    normal, overflowing terms (|x| 300-600), inf and NaN."""
+    x = torch.linspace(-3, 3, n, device=dev)
+    edges = torch.tensor([0.0, -0.0, 1e-45, -1e-40, 1.17549435e-38, 1e-20,
+                          337.0, -450.0, 591.0, 1e19, 3.4e38,
+                          float("inf"), float("-inf"), float("nan")],
+                         device=dev)
+    x[::97][:edges.numel()] = edges
+    return x
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("same_offset", [False, True])
+def test_taylor_equals_plain_on_offset_views(dev, offset, same_offset):
+    """Package views start at any item. x at element offset 1-3 with a
+    fresh out (x and out misaligned against each other: element by
+    element) or an out at the same offset (peeled to a 16-byte boundary,
+    then 16-byte accesses)."""
+    base = _taylor_inputs(dev)
+    x = base[offset:]
+    out = torch.empty_like(base)[offset:] if same_offset else None
+    got = taylor_sin(x, out=out)
+    assert _same_bits(got, taylor_sin_plain(x))
+
+
+def test_taylor_runtime_terms_equal_plain(dev):
+    """A term count other than the main path's 12 runs the runtime-loop
+    kernel."""
+    x = _taylor_inputs(dev)
+    before = taylor_sin.launches
+    got = taylor_sin(x, terms=5)
+    assert taylor_sin.launches == before + 1
+    assert _same_bits(got, taylor_sin_plain(x, terms=5))
 
 
 @pytest.mark.parametrize("lo,hi", [(0, 0), (2, 0), (1, 2)])
@@ -238,14 +281,29 @@ def test_flash_attention_one_key_rows_copy_v(dev, dtype):
     assert torch.equal(got, v)
 
 
-@pytest.mark.parametrize("bh,t,dk,dv,dtype", [
-    (3, 200, 16, 16, torch.float32),
-    (3, 64, 32, 48, torch.float32),
-    (4, 333, 64, 64, torch.float32),
-    (2, 130, 128, 40, torch.float32),
-    (2, 256, 64, 64, torch.bfloat16),
+@pytest.mark.parametrize("bh,t,dk,dv,dtype,tile", [
+    (3, 200, 16, 16, torch.float32, None),
+    (3, 64, 32, 48, torch.float32, None),
+    (4, 333, 64, 64, torch.float32, None),
+    (2, 130, 128, 40, torch.float32, None),
+    (2, 256, 64, 64, torch.bfloat16, None),
+    # bf16 runs on the tensor cores: ragged T, padded Dk and Dv, Dv tiles
+    # of 32 (Dk 128, or forced) and 64, 2-byte copies, many heads
+    (3, 40, 64, 64, torch.bfloat16, None),
+    (3, 333, 64, 64, torch.bfloat16, None),
+    (2, 200, 16, 64, torch.bfloat16, None),
+    (2, 200, 128, 64, torch.bfloat16, None),
+    (2, 200, 64, 40, torch.bfloat16, None),
+    (2, 100, 20, 33, torch.bfloat16, None),
+    (3, 333, 64, 64, torch.bfloat16, 64),
+    (2, 200, 32, 100, torch.bfloat16, 64),
+    (2, 200, 32, 100, torch.bfloat16, 32),
+    (264, 128, 64, 64, torch.bfloat16, None),
 ])
-def test_linear_attention_close_to_plain(dev, bh, t, dk, dv, dtype):
+def test_linear_attention_close_to_plain(dev, monkeypatch, bh, t, dk, dv,
+                                         dtype, tile):
+    if tile is not None:
+        monkeypatch.setattr(la_mod, "dv_tile_for", lambda *a, **kw: tile)
     g = torch.Generator(device=dev).manual_seed(12)
     q = torch.randn(bh, t, dk, generator=g, device=dev).to(dtype)
     k = (0.2 * torch.randn(bh, t, dk, generator=g, device=dev)).to(dtype)
@@ -258,21 +316,29 @@ def test_linear_attention_close_to_plain(dev, bh, t, dk, dv, dtype):
     rtol, atol = _lm_tol(dtype, 3e-4)
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=atol)
+    if dtype == torch.bfloat16:
+        # chip_smoke.py's LINEAR_ROW_REL: a dropped chunk state shows here
+        row_rel = ((got.float() - want.float()).norm(dim=-1)
+                   / want.float().norm(dim=-1))
+        assert float(row_rel.max()) <= 1e-2
 
 
-def test_linear_attention_steep_decays_stay_finite(dev):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_linear_attention_steep_decays_stay_finite(dev, dtype):
     """Mamba-2-like decays: the cumulative log-decay falls below -100
     within one chunk, where a growth exp(cum_i - cum_j), i < j, is inf."""
     g = torch.Generator(device=dev).manual_seed(13)
     bh, t, dk, dv = 4, 256, 64, 64
-    q = torch.randn(bh, t, dk, generator=g, device=dev)
-    k = torch.randn(bh, t, dk, generator=g, device=dev)
-    v = torch.randn(bh, t, dv, generator=g, device=dev)
+    q = torch.randn(bh, t, dk, generator=g, device=dev).to(dtype)
+    k = torch.randn(bh, t, dk, generator=g, device=dev).to(dtype)
+    v = torch.randn(bh, t, dv, generator=g, device=dev).to(dtype)
     ld = -4.0 * torch.rand(bh, t, generator=g, device=dev)
     got = linear_attention(q, k, v, ld)
     assert bool(torch.isfinite(got).all())
-    torch.testing.assert_close(got, linear_attention_plain(q, k, v, ld),
-                               rtol=3e-4, atol=3e-4)
+    rtol, atol = _lm_tol(dtype, 3e-4)
+    torch.testing.assert_close(got.float(),
+                               linear_attention_plain(q, k, v, ld).float(),
+                               rtol=rtol, atol=atol)
 
 
 def test_lm_kernels_refuse_other_dtypes(dev):
@@ -293,7 +359,6 @@ def test_lm_kernels_refuse_other_dtypes(dev):
 def test_lm_kernels_never_run_the_plain_version_on_cuda(dev, monkeypatch):
     # the package exports the wrappers under the modules' own names
     fa_mod = importlib.import_module("repro_torch.kernels.flash_attention")
-    la_mod = importlib.import_module("repro_torch.kernels.linear_attention")
 
     def refuse(*args, **kwargs):
         raise AssertionError("plain version ran on a CUDA tensor")

@@ -25,6 +25,7 @@ Tolerances:
   order.
 """
 import importlib
+import re
 
 import numpy as np
 import jax.numpy as jnp
@@ -71,6 +72,58 @@ def test_taylor_matches_reference(terms):
     assert_allclose(got, np.asarray(pallas_taylor(jnp.asarray(x),
                                                   terms=terms, bm=8)),
                     rtol=1e-5, atol=1e-6)
+
+
+def _taylor_reciprocals() -> list[float]:
+    """The RN(1/d) constants of ``csrc/taylor.cu``'s unrolled kernel."""
+    src = (_lib.CSRC / "taylor.cu").read_text()
+    return [float.fromhex(h) for h in
+            re.findall(r"return (0x[0-9a-f.]+p[-+]?\d+)f;", src)]
+
+
+def _rn32(a: np.ndarray) -> np.ndarray:
+    return a.astype(np.float32).astype(np.float64)
+
+
+def _rn32_on_midpoints(s: np.ndarray, sign: np.ndarray) -> np.ndarray:
+    """RN32 of an exact value x from s = RN64(x) and sign = sign(x - s)
+    where s is an f32 midpoint: the only case where rounding s again to
+    f32 can differ from rounding x."""
+    f = _rn32(s)
+    f32 = f.astype(np.float32)
+    up = np.nextafter(f32, np.float32(np.inf)).astype(np.float64)
+    dn = np.nextafter(f32, np.float32(-np.inf)).astype(np.float64)
+    f = np.where((s == (f + up) / 2) & (sign > 0), up, f)
+    return np.where((s == (f + dn) / 2) & (sign < 0), dn, f)
+
+
+@pytest.mark.parametrize("k", range(12))
+def test_taylor_reciprocal_division_is_correctly_rounded(k):
+    """The unrolled CUDA kernel divides by d = (2k+2)(2k+3) as
+    q = RN(n r), q' = RN(q + RN(n - q d) r) with r = RN(1/d). Held exactly
+    against RN(n / d) for every f32 significand n in [1, 2); scaling n by
+    a power of two scales every step exactly, so this covers the normal
+    range. Every product below is exact in f64, and the one inexact f64
+    sum is rounded to f32 through its exact error term."""
+    recips = _taylor_reciprocals()
+    assert len(recips) == 12
+    d = float((2 * k + 2) * (2 * k + 3))
+    r = recips[k]
+    assert r == float(np.float32(1.0) / np.float32(d))
+    n = np.arange(2**23, 2**24, dtype=np.float64) * 2.0**-23
+    q = _rn32(n * r)
+    rem = _rn32(n - q * d)              # n - q d is exact in f64
+    p = rem * r
+    s = q + p                           # two-sum: q + p == s + e exactly
+    bb = s - q
+    e = (q - (s - bb)) + (p - bb)
+    got = _rn32_on_midpoints(s, e)
+    # RN32(n / d): n / d is never an f32 midpoint (d's odd part is > 1),
+    # and n - s d is exact in f64 for s an f32 midpoint
+    s = n / d
+    want = _rn32_on_midpoints(s, n - s * d)
+    assert int((got != want).sum()) == 0
+    assert int((q != want).sum()) > 0   # the correction does the work
 
 
 @pytest.mark.parametrize("h,w", [(37, 53), (64, 128), (5, 9)])

@@ -10,6 +10,8 @@ relative L2 per query row). The CUDA kernels
 themselves are held against these plain versions on the card
 (``tests/test_torch_cuda.py``).
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -232,3 +234,162 @@ def test_linear_attention_refuses_bad_shapes(bad):
     ld = torch.zeros(2, 9) if bad == "decay" else torch.zeros(2, 8)
     with pytest.raises(ValueError):
         linear_attention(q, k, v, ld)
+
+
+def _linear_tensor_core_rounding(q, k, v, log_decay, *, chunk=64,
+                                 split_a=True, split_kw=True):
+    """The bf16 CUDA kernel's arithmetic in plain torch on the CPU
+    (``csrc/linear_attention.cu``, namespace ``tensor_core``): per chunk of
+    64 steps, f32 scores from the bf16 inputs and the causal decay
+    exp(cum_i - cum_j) applied in f32; A as a bf16 hi + lo pair; the
+    carried f32 state enters Q S as a hi + lo pair, scaled by exp(cum_i);
+    the update adds (K o w)^T V with K o w as a hi + lo pair and the state
+    kept in f32; the output rounded to bf16. ``split_a`` / ``split_kw``
+    False round that operand to bf16 once instead (the design the kernel
+    did not take)."""
+
+    def hi_lo(x, split=True):
+        hi = x.to(torch.bfloat16).float()
+        return hi, ((x - hi).to(torch.bfloat16).float() if split
+                    else torch.zeros_like(x))
+
+    BH, T, Dk = q.shape
+    pad = -T % chunk
+    qf, kf, vf = (torch.nn.functional.pad(a.float(), (0, 0, 0, pad))
+                  for a in (q, k, v))
+    ld = torch.nn.functional.pad(log_decay.float(), (0, pad))
+    S = torch.zeros(BH, Dk, v.shape[-1])
+    out = []
+    causal = torch.ones(chunk, chunk, dtype=torch.bool).tril()
+    for t0 in range(0, T + pad, chunk):
+        qc, kc, vc = (a[:, t0:t0 + chunk] for a in (qf, kf, vf))
+        cum = torch.cumsum(ld[:, t0:t0 + chunk], dim=1)
+        total = cum[:, -1:]
+        gap = (cum[:, :, None] - cum[:, None, :]).masked_fill(~causal,
+                                                              float("-inf"))
+        a_hi, a_lo = hi_lo(qc @ kc.transpose(1, 2) * torch.exp(gap), split_a)
+        s_hi, s_lo = hi_lo(S)
+        o = (torch.exp(cum)[..., None] * (qc @ s_hi + qc @ s_lo)
+             + a_hi @ vc + a_lo @ vc)
+        out.append(o.to(torch.bfloat16))
+        kw_hi, kw_lo = hi_lo(kc * torch.exp(total - cum)[..., None],
+                             split_kw)
+        S = (torch.exp(total)[..., None] * S
+             + kw_hi.transpose(1, 2) @ vc + kw_lo.transpose(1, 2) @ vc)
+    return torch.cat(out, dim=1)[:, :T]
+
+
+def _card_test_inputs(seed, bh, t, dk, dv):
+    """bf16 q, k, v and f32 log-decays drawn as ``tests/test_torch_cuda.py``
+    draws them: k 0.2 N(0, 1), decays -|0.1 N(0, 1)| (outputs up to ~25)."""
+    rng = np.random.default_rng(seed)
+    arrays = (rng.normal(size=(bh, t, dk)), 0.2 * rng.normal(size=(bh, t, dk)),
+              rng.normal(size=(bh, t, dv)))
+    bf = [torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+          for a in arrays]
+    ld = -np.abs(0.1 * rng.normal(size=(bh, t))).astype(np.float32)
+    return bf, torch.from_numpy(ld)
+
+
+def _row_rel(got, want):
+    return float(((got - want).norm(dim=-1)
+                  / want.norm(dim=-1).clamp_min(1e-30)).max())
+
+
+def _mamba2_inputs(seed, bh, t, dk, dv, steep=False):
+    """bf16 q, k, v and f32 log-decays drawn as ``chip_smoke.py``'s
+    ``linear_case`` draws zamba2-7b's: -softplus(dt + log(expm1(0.01)))
+    A_h with A_h = 1 ... 16 over the heads, k = B dt; ``steep``: decays
+    -4 U(0, 1), whose sum over a chunk falls below -100."""
+    rng = np.random.default_rng(seed)
+    A = np.linspace(1.0, 16.0, bh, dtype=np.float32)
+    dt = np.logaddexp(0.0, rng.normal(size=(bh, t))
+                      + np.log(np.expm1(0.01))).astype(np.float32)
+    ld = (-4.0 * rng.random(size=(bh, t)) if steep
+          else -dt * A[:, None]).astype(np.float32)
+    q = rng.normal(size=(bh, t, dk)).astype(np.float32)
+    k = (rng.normal(size=(bh, t, dk)) * dt[..., None]).astype(np.float32)
+    v = rng.normal(size=(bh, t, dv)).astype(np.float32)
+    bf = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
+    return bf, torch.from_numpy(ld)
+
+
+@pytest.mark.parametrize("t,dk,dv,draw", [
+    (40, 64, 64, "mamba2"), (200, 64, 64, "mamba2"), (512, 64, 64, "mamba2"),
+    (200, 128, 64, "mamba2"), (200, 64, 64, "steep"), (256, 64, 64, "card"),
+    (200, 128, 64, "card")])
+def test_linear_attention_tensor_core_rounding_within_card_gate(t, dk, dv,
+                                                                draw):
+    """The bf16 kernel's roundings (A, K o w and S as bf16 hi + lo pairs)
+    keep it within the gates the card holds it to: 2e-2 abs and 1e-2
+    relative L2 per output row, against ``ref.linear_attention`` on the
+    same bf16 inputs and against the plain version."""
+    if draw == "card":
+        (q, k, v), ld = _card_test_inputs(t + dk, 2, t, dk, dv)
+    else:
+        (q, k, v), ld = _mamba2_inputs(t + dk, 8, t, dk, dv, draw == "steep")
+    got = _linear_tensor_core_rounding(q, k, v, ld).float()
+    want = np.asarray(ref.linear_attention(
+        *(jnp.asarray(a.float().numpy(), jnp.bfloat16) for a in (q, k, v)),
+        jnp.asarray(ld.numpy())), np.float32)
+    plain = linear_attention_plain(q, k, v, ld).float()
+    for other in (torch.from_numpy(want), plain):
+        torch.testing.assert_close(got, other, rtol=2e-2, atol=2e-2)
+        assert _row_rel(got, other) <= 1e-2
+
+
+@pytest.mark.parametrize("operand", ["A", "K o w"])
+def test_linear_attention_single_bf16_operand_misses_card_gate(operand):
+    """Why the kernel splits A and K o w into hi + lo: rounded to bf16 once
+    (as flash rounds P), single-bf16 K o w puts a row past the 1e-2
+    relative L2 gate (Mamba-2 decays, Dk 128), and single-bf16 A puts
+    elements past the 2e-2 abs gate where outputs are large (the card
+    tests' draw)."""
+    if operand == "A":
+        (q, k, v), ld = _card_test_inputs(456, 2, 256, 64, 64)
+    else:
+        (q, k, v), ld = _mamba2_inputs(328, 8, 200, 128, 64)
+    plain = linear_attention_plain(q, k, v, ld).float()
+    single = _linear_tensor_core_rounding(
+        q, k, v, ld, split_a=operand != "A",
+        split_kw=operand != "K o w").float()
+    split = _linear_tensor_core_rounding(q, k, v, ld).float()
+    if operand == "A":
+        over = (single - plain).abs() > 2e-2 + 2e-2 * plain.abs()
+        assert int(over.sum()) > 0
+        torch.testing.assert_close(split, plain, rtol=2e-2, atol=2e-2)
+    else:
+        assert _row_rel(single, plain) > 1e-2
+    assert _row_rel(split, plain) <= 1e-2
+
+
+@pytest.mark.parametrize("dk,dv,tile", [
+    (64, 64, 64), (16, 64, 64), (20, 33, 64), (64, 100, 64), (128, 64, 32),
+    (128, 40, 32), (64, 32, 32), (32, 16, 32)])
+def test_linear_attention_passes_its_dv_tile_to_the_bf16_entry(
+        monkeypatch, dk, dv, tile):
+    """On device tensors the wrapper hands the bf16 C entry the shapes and
+    the Dv tile dv_tile_for picks (64, or 32 for Dk > 64 or Dv <= 32), and
+    counts one launch. The entry and the device checks are stubbed: only
+    the wrapper's dispatch runs here."""
+    la = importlib.import_module("repro_torch.kernels.linear_attention")
+    calls = []
+
+    class Lib:
+        def linear_attention_bf16(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(la._lib, "require_cuda", lambda *a: None)
+    monkeypatch.setattr(la._lib, "library", Lib)
+    monkeypatch.setattr(la._lib, "stream_of", lambda x: 7)
+    bh, t = 3, 50
+    q = torch.empty(bh, t, dk, dtype=torch.bfloat16, device="meta")
+    v = torch.empty(bh, t, dv, dtype=torch.bfloat16, device="meta")
+    ld = torch.empty(bh, t, device="meta")
+    before = linear_attention.launches
+    out = la.linear_attention(q, q, v, ld)
+    assert tuple(out.shape) == (bh, t, dv) and out.dtype == torch.bfloat16
+    assert linear_attention.launches == before + 1
+    assert len(calls) == 1 and calls[0][5:] == (bh, t, dk, dv, tile, 7)
+    assert la.dv_tile_for(dk, dv) == tile
