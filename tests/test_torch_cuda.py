@@ -128,6 +128,145 @@ def test_mandelbrot_equals_plain(dev):
     assert torch.equal(mandelbrot(cre, cim), mandelbrot_plain(cre, cim))
 
 
+def _mandelbrot_points(n, dev, seed=5):
+    """n points over the classic viewport, every 7th a point with |c| up
+    to 1e30, whose z overflows to inf and then NaN while the warp runs
+    on."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cre = torch.rand(n, generator=g, device=dev) * 3.0 - 2.2
+    cim = torch.rand(n, generator=g, device=dev) * 2.8 - 1.4
+    big = torch.tensor([1e30, -3e29, 2.5, 1e19, -1e30, 0.3], device=dev)
+    sel = torch.arange(0, n, 7, device=dev)
+    cre[sel] = big[sel % 6]
+    cim[sel] = big.flip(0)[sel % 6]
+    return cre, cim
+
+
+@pytest.mark.parametrize("max_iter", [0, 1, 7, 64, 100])
+@pytest.mark.parametrize("n", [1, 31, 33, 257, 10**5 + 3])
+def test_mandelbrot_equals_plain_for_every_budget(dev, n, max_iter):
+    """Sticky counts, U-step groups and the warp vote: ragged last warps,
+    budgets below, at and off multiples of the unroll, overflowing z."""
+    cre, cim = _mandelbrot_points(n, dev)
+    before = mandelbrot.launches
+    got = mandelbrot(cre, cim, max_iter=max_iter)
+    assert mandelbrot.launches == before + 1
+    torch.testing.assert_close(
+        got, mandelbrot_plain(cre, cim, max_iter=max_iter), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("offset", [1, 3])
+def test_mandelbrot_equals_plain_on_views_into_an_out_slice(dev, offset):
+    """Package views at odd element offsets, written into a slice of a
+    larger output, as the data plane hands them over."""
+    cre, cim = _mandelbrot_points(5003, dev)
+    a, b = cre[offset:offset + 4001], cim[offset + 2:offset + 4003]
+    out = torch.full((a.numel() + 10,), -1.0, device=dev)
+    before = mandelbrot.launches
+    got = mandelbrot(a, b, out=out[5:5 + a.numel()])
+    assert mandelbrot.launches == before + 1
+    torch.testing.assert_close(got, mandelbrot_plain(a, b), rtol=0, atol=0)
+    assert bool((out[:5] == -1).all()) and bool((out[-5:] == -1).all())
+
+
+@pytest.mark.parametrize("unroll", [1, 2, 4, 8])
+def test_mandelbrot_unroll_entry_equals_plain(dev, unroll):
+    """chip_smoke.py's unroll probe: every unroll it times counts as the
+    plain version does."""
+    from repro_torch.kernels import _lib
+
+    cre, cim = _mandelbrot_points(4099, dev)
+    out = torch.empty_like(cre)
+    lib = _lib.library()
+    _lib.check(lib.mandelbrot_unroll_f32(
+        cre.data_ptr(), cim.data_ptr(), out.data_ptr(), cre.numel(), 67,
+        unroll, _lib.stream_of(cre)), "mandelbrot_unroll")
+    torch.testing.assert_close(out, mandelbrot_plain(cre, cim, max_iter=67),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("w", [1, 3, 4, 5, 127, 128, 129, 516, 5120])
+@pytest.mark.parametrize("lo,hi", [(0, 0), (2, 2), (1, 0)])
+def test_gaussian_equals_plain_for_every_width(dev, w, lo, hi):
+    """Strips of 128 columns with their halo, 16-byte accesses when W % 4
+    is 0 and 4-byte ones otherwise, runs of rows walked down and up."""
+    rows = 21 if w == 5120 else 301
+    img = torch.randn(rows, w, device=dev)
+    before = gaussian_blur_halo.launches
+    got = gaussian_blur_halo(img, lo_pad=lo, hi_pad=hi)
+    assert gaussian_blur_halo.launches == before + 1
+    torch.testing.assert_close(
+        got, gaussian_blur_halo_plain(img, lo_pad=lo, hi_pad=hi), rtol=0,
+        atol=0)
+
+
+@pytest.mark.parametrize("w", [4, 128, 516])
+@pytest.mark.parametrize("shift", ["src", "out", "both"])
+def test_gaussian_misaligned_by_one_float_equals_plain(dev, w, shift):
+    """A source or an output one float off a 16-byte boundary takes the
+    4-byte path, even when W % 4 is 0."""
+    rows = 67
+    base = torch.randn(rows * w + 1, device=dev)
+    img = base[1:].view(rows, w) if shift in ("src", "both") else \
+        base[:-1].view(rows, w)
+    flat = torch.empty((rows - 4) * w + 1, device=dev)
+    out = flat[1:].view(rows - 4, w) if shift in ("out", "both") else \
+        flat[:-1].view(rows - 4, w)
+    before = gaussian_blur_halo.launches
+    got = gaussian_blur_halo(img, out=out)
+    assert gaussian_blur_halo.launches == before + 1
+    torch.testing.assert_close(got, gaussian_blur_halo_plain(img), rtol=0,
+                               atol=0)
+
+
+@pytest.mark.parametrize("w", [516, 5120, 129])
+def test_gaussian_row_offset_packages_equal_the_whole_image(dev, w):
+    """USM packages: row-offset views of the whole image, with 2 context
+    rows where they exist and the missing ones as pads, into row slices of
+    one output; together they equal the whole image's blur."""
+    h = 203
+    img = torch.randn(h, w, device=dev)
+    want = gaussian_blur_halo_plain(img, lo_pad=2, hi_pad=2)
+    out = torch.full_like(img, float("nan"))
+    before = gaussian_blur_halo.launches
+    for r0, r1 in ((0, 1), (1, 37), (37, 38), (38, 200), (200, 203)):
+        lo, hi = max(0, r0 - 2), min(h, r1 + 2)
+        gaussian_blur_halo(img[lo:hi], lo_pad=2 - (r0 - lo),
+                           hi_pad=2 - (hi - r1), out=out[r0:r1])
+    assert gaussian_blur_halo.launches == before + 5
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", ["mandelbrot", "gaussian"])
+def test_kernels_on_mapped_host_memory_equal_plain(dev, name):
+    """USM hands the kernels mapped host memory, which takes its own launch
+    shape: a chunk of 32 points per warp past the grid device memory gets
+    (300,007 points), runs of 64 rows in place of 16."""
+    rng = np.random.default_rng(4)
+    if name == "mandelbrot":
+        n = 300_007
+        arrays = [rng.uniform(-2.2, 0.8, n).astype(np.float32),
+                  rng.uniform(-1.4, 1.4, n).astype(np.float32),
+                  np.zeros(n, np.float32)]
+        fn, plain = mandelbrot, mandelbrot_plain
+    else:
+        arrays = [rng.normal(size=(203, 516)).astype(np.float32),
+                  np.zeros((199, 516), np.float32)]
+        fn, plain = gaussian_blur_halo, gaussian_blur_halo_plain
+    maps = [dataplane._map_host(a, dev) for a in arrays]
+    try:
+        before = fn.launches
+        fn(*(m for m, _ in maps[:-1]), out=maps[-1][0])
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+    finally:
+        for _, starts in maps:
+            dataplane._unmap_host(starts)
+    want = plain(*(torch.from_numpy(a).to(dev) for a in arrays[:-1]))
+    np.testing.assert_array_equal(arrays[-1], want.cpu().numpy())
+    assert not dataplane._mapped
+
+
 @pytest.mark.parametrize("num", [8, 1, 300])
 def test_raytrace_equals_plain(dev, num):
     """A 501 x 613 camera grid, so rays graze every sphere's silhouette."""

@@ -386,3 +386,221 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _lib.nvcc_path()
+
+
+# -- the CUDA kernels' schedules, modelled in plain PyTorch ----------------
+# The kernels run only on the card; these models follow their loops, lanes,
+# warps and row order step by step on the CPU, with the same f32 operations
+# in the same order, and must equal the plain versions, the reference and
+# the Pallas kernels bit for bit.
+
+def _cu_constant(source: str, name: str) -> int:
+    """The value of ``constexpr int <name> = <value>;`` in csrc/<source>."""
+    text = (_lib.CSRC / source).read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+MANDEL_UNROLL = _cu_constant("mandelbrot.cu", "kUnroll")
+
+
+def _mandelbrot_schedule(cre, cim, max_iter, unroll):
+    """csrc/mandelbrot.cu's schedule: warps of 32 consecutive points (the
+    last padded with lanes that are never alive), a sticky ``alive`` and an
+    integer count per lane, groups of ``unroll`` steps between warp votes,
+    escaped lanes updating z on into inf and NaN, and the budget's last
+    ``max_iter % unroll`` steps one by one, each after a vote.
+
+    Returns:
+        The counts as f32 in ``cre``'s shape, and the steps each warp ran.
+    """
+    n = cre.numel()
+
+    def lanes(x):
+        flat = x.reshape(-1)
+        return torch.cat([flat, flat.new_zeros(-n % 32)]).view(-1, 32)
+
+    cr, ci = lanes(cre), lanes(cim)
+    alive = lanes(torch.ones(n, dtype=torch.bool))
+    zr, zi = torch.zeros_like(cr), torch.zeros_like(ci)
+    count = torch.zeros(cr.shape, dtype=torch.int32)
+    running = torch.ones(cr.shape[0], dtype=torch.bool)
+    steps = torch.zeros(cr.shape[0], dtype=torch.int64)
+
+    def vote() -> bool:
+        nonlocal running
+        running = running & alive.any(1)
+        return bool(running.any())
+
+    def step() -> None:
+        nonlocal zr, zi, alive, count
+        run = running[:, None]
+        zr2, zi2 = zr * zr, zi * zi
+        alive = torch.where(run, alive & (zr2 + zi2 <= 4.0), alive)
+        count = count + (alive & run).to(torch.int32)
+        zr, zi = (torch.where(run, zr2 - zi2 + cr, zr),
+                  torch.where(run, 2.0 * zr * zi + ci, zi))
+        steps.add_(running.to(torch.int64))
+
+    left = max_iter
+    while left >= unroll and vote():
+        for _ in range(unroll):
+            step()
+        left -= unroll
+    if left < unroll:
+        while left > 0 and vote():
+            step()
+            left -= 1
+    return count.reshape(-1)[:n].float().view(cre.shape), steps
+
+
+def _mandelbrot_all(cre: np.ndarray, cim: np.ndarray, it: int) -> list:
+    """The plain version, the reference and the Pallas kernel."""
+    return [mandelbrot_plain(t(cre), t(cim), max_iter=it).numpy(),
+            np.asarray(ref.mandelbrot(jnp.asarray(cre), jnp.asarray(cim),
+                                      it)),
+            np.asarray(pallas_mandelbrot(jnp.asarray(cre), jnp.asarray(cim),
+                                         max_iter=it, bm=8))]
+
+
+@pytest.mark.parametrize("side,it", [(31, 32), (64, 64)])
+def test_mandelbrot_schedule_matches_reference(side, it):
+    re_ = np.linspace(-2.2, 0.8, side, dtype=np.float32)
+    im = np.linspace(-1.4, 1.4, side + 3, dtype=np.float32)
+    cre, cim = np.meshgrid(re_, im)
+    got, _ = _mandelbrot_schedule(t(cre), t(cim), it, MANDEL_UNROLL)
+    for want in _mandelbrot_all(cre, cim, it):
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("max_iter", sorted({0, 1, MANDEL_UNROLL - 1,
+                                             MANDEL_UNROLL + 1, 64, 100}))
+def test_mandelbrot_schedule_for_every_budget(max_iter):
+    """667 points (the last warp ragged) over the viewport, every 7th with
+    |c| up to 1e30 so that z overflows to inf and NaN on escaped lanes,
+    at every unroll the probe times."""
+    re_ = np.linspace(-2.2, 0.8, 29, dtype=np.float32)
+    im = np.linspace(-1.4, 1.4, 23, dtype=np.float32)
+    cre, cim = (np.ascontiguousarray(a.ravel()) for a in np.meshgrid(re_,
+                                                                      im))
+    big = np.array([1e30, -3e29, 2.5, 1e19, -1e30, 0.3], dtype=np.float32)
+    cre[::7] = big[np.arange(cre[::7].size) % 6]
+    cim[::7] = big[::-1][np.arange(cim[::7].size) % 6]
+    wants = _mandelbrot_all(cre, cim, max_iter)
+    for unroll in (1, 2, 4, 8, MANDEL_UNROLL):
+        got, steps = _mandelbrot_schedule(t(cre), t(cim), max_iter, unroll)
+        for want in wants:
+            np.testing.assert_array_equal(got.numpy(), want)
+        assert int(steps.max()) <= max(max_iter, 0)
+
+
+@pytest.mark.parametrize("unroll", [1, 2, 4, 8])
+def test_mandelbrot_schedule_warp_steps_follow_the_unroll_model(unroll):
+    """A warp whose slowest lane counts C runs min(64, (C // U + 1) U)
+    steps: the count PERF.md weighs against the vote's cost to pick U."""
+    re_ = np.linspace(-2.2, 0.8, 96, dtype=np.float32)   # 3 warps a row
+    im = np.linspace(-1.4, 1.4, 70, dtype=np.float32)
+    cre, cim = np.meshgrid(re_, im)
+    got, steps = _mandelbrot_schedule(t(cre), t(cim), 64, unroll)
+    slowest = got.reshape(-1, 32).amax(1).long()
+    want = torch.clamp((slowest // unroll + 1) * unroll, max=64)
+    assert torch.equal(steps, want)
+    assert 0 < int((want < 64).sum()) < want.numel()  # warps leave early
+
+
+def _gaussian_walk(img: torch.Tensor, lo_pad: int, hi_pad: int,
+                   run: int = 0) -> torch.Tensor:
+    """csrc/gaussian.cu's schedule: runs of ``run`` output rows (0: as its
+    launcher sizes them), alternate runs walked up, strips of 128 columns
+    with their 2 + 2 halo columns, a ring of row slots filled kDepth rows
+    ahead (checked never to overwrite a row before it is read), a 5-row
+    window in registers, the vertical pass, the neighbours' columns (the
+    halo's at the strip's ends) and the horizontal pass."""
+    strip, depth = (_cu_constant("gaussian.cu", k)
+                    for k in ("kStrip", "kDepth"))
+    slots = depth + 1
+    src_rows, W = img.shape
+    out_rows = src_rows + lo_pad + hi_pad - 4
+    if run == 0:
+        run = max(_cu_constant("gaussian.cu", "kRows"),
+                  -(-out_rows // 65535))
+    out = torch.full((out_rows, W), float("nan"))
+
+    def taps5(a, b, c, d, e):
+        s = 0.0625 * a
+        s = s + 0.25 * b
+        s = s + 0.375 * c
+        s = s + 0.25 * d
+        return s + 0.0625 * e
+
+    def row(lrow: int, cs: int) -> torch.Tensor:
+        """A slot: the strip's columns, then 2 halo columns on the left
+        and 2 on the right, zeros where the row or column is missing."""
+        slot = torch.zeros(strip + 4)
+        sr = lrow - lo_pad
+        if 0 <= sr < src_rows:
+            cols = torch.cat([torch.arange(cs, cs + strip),
+                              torch.tensor([cs - 2, cs - 1, cs + strip,
+                                            cs + strip + 1])])
+            ok = (cols >= 0) & (cols < W)
+            slot[ok] = img[sr, cols[ok]]
+        return slot
+
+    for by in range(-(-out_rows // run)):
+        r_lo = by * run
+        r_hi = min(r_lo + run, out_rows)
+        down = by % 2 == 0
+        n_steps = r_hi - r_lo + 4
+
+        def lrow(j):
+            return r_lo + j if down else r_hi + 3 - j
+
+        for cs in range(0, W, strip):
+            ring = [(j, row(lrow(j), cs)) if j < n_steps else None
+                    for j in range(depth)] + [None]
+            window = [torch.zeros(strip + 4)] * 5
+            rd, wr = 0, depth
+            for j in range(n_steps):
+                held, nw = ring[rd]
+                assert held == j
+                if j + depth < n_steps:
+                    assert ring[wr] is None or ring[wr][0] < j
+                    ring[wr] = (j + depth, row(lrow(j + depth), cs))
+                rd, wr = (rd + 1) % slots, (wr + 1) % slots
+                window = window[1:] + [nw] if down else [nw] + window[:-1]
+                if j < 4:
+                    continue
+                v = taps5(*window)
+                ext = torch.cat([v[strip:strip + 2], v[:strip],
+                                 v[strip + 2:]])
+                o = taps5(*(ext[d:d + strip] for d in range(5)))
+                r = lrow(j - 4) if down else lrow(j)
+                end = min(cs + strip, W)
+                out[r, cs:end] = o[:end - cs]
+    return out
+
+
+@pytest.mark.parametrize("lo,hi", [(lo, hi) for lo in range(3)
+                                   for hi in range(3)])
+@pytest.mark.parametrize("h", [6, 23, 75])
+@pytest.mark.parametrize("w", [1, 3, 4, 5, 127, 128, 129, 516])
+def test_gaussian_walk_matches_plain_and_reference(w, h, lo, hi):
+    """Runs of 16 rows: one run shorter than a run (h = 6), a full run and
+    a short one walked up (23), five runs alternating (75)."""
+    img = rng.normal(size=(h, w)).astype(np.float32)
+    got = _gaussian_walk(t(img), lo, hi).numpy()
+    want = gaussian_blur_halo_plain(t(img), lo_pad=lo, hi_pad=hi).numpy()
+    np.testing.assert_array_equal(got, want)
+    padded = np.pad(img, ((lo, hi), (0, 0)))
+    ref_rows = np.asarray(ref.gaussian_blur(jnp.asarray(padded)))
+    np.testing.assert_array_equal(got, ref_rows[2:2 + got.shape[0]])
+
+
+@pytest.mark.parametrize("run", [1, 5, 24, 64, 71])
+def test_gaussian_walk_other_run_lengths(run):
+    """Runs of other lengths (the launcher takes 64 over mapped host memory
+    and longer ones past the grid's y limit), from one row to all 71,
+    walked down and up."""
+    img = rng.normal(size=(75, 129)).astype(np.float32)
+    got = _gaussian_walk(t(img), 2, 0, run=run).numpy()
+    np.testing.assert_array_equal(
+        got, gaussian_blur_halo_plain(t(img), lo_pad=2, hi_pad=0).numpy())
