@@ -41,8 +41,6 @@ SIGNATURES = {
     # a, b, c, M, N, K, tile rows, tile columns
     "matmul_f32": (_P, _P, _P, *(_I,) * 5, _P),
     "mandelbrot_f32": (_P, _P, _P, _LL, _I, _P),
-    # the same at an unroll of 1, 2, 4 or 8 (a probe's; the wrapper runs 4)
-    "mandelbrot_unroll_f32": (_P, _P, _P, _LL, _I, _I, _P),
     "raytrace_f32": (_P, _P, _P, _P, _I, _P, _LL, _P),
     "rap_f32": (_P, _P, _P, _LL, _I, _P),
     # q, k, v, out, B, Hq, Hkv, T, D, causal, window (0: none), scale

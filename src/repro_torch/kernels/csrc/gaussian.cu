@@ -43,13 +43,18 @@
 // blocks per SM slot and the card stays full to the end of a launch, and
 // the rows read twice come the second time from L2. Mapped host memory
 // (the USM plane's arrays) is read over PCIe, where every row read twice
-// crosses it again, so there the runs are longer (kRowsHost).
+// crosses it again, so there the runs are longer (kRowsHost; chip_smoke.py's
+// launch-shape probe times both run lengths on both kinds of memory).
 // Each sum is written with __fmul_rn/__fadd_rn in the plain version's
 // order, so the kernel equals it bit for bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cuda_common.cuh"
+
 namespace {
+
+using namespace cu;
 
 constexpr int kWarps = 4;                 // a block: 4 strips side by side
 constexpr int THREADS = 32 * kWarps;
@@ -60,38 +65,6 @@ constexpr int kSlots = kDepth + 1;
 constexpr int kRows = 16;                 // output rows a warp walks
 constexpr int kRowsHost = 64;             // the same over mapped host memory
 constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// Copy `bytes` (0, or all of the copy's 4, 8 or 16) from global to shared
-// memory, zero-filling what is not copied.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async8(float* dst, const float* src,
-                                          int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 __device__ __forceinline__ float taps5(float a, float b, float c, float d,
                                        float e) {
@@ -283,17 +256,6 @@ __global__ void __launch_bounds__(THREADS)
     Walk<VEC, false>{s, ring[warp], r_lo, r_hi, steps, lane}.run();
   else
     Walk<VEC, true>{s, ring[warp], r_lo, r_hi, steps, lane}.run();
-}
-
-// True when `p` is device memory (false for mapped host memory, and when
-// CUDA cannot tell).
-bool on_device(const void* p) {
-  cudaPointerAttributes a;
-  if (cudaPointerGetAttributes(&a, p) != cudaSuccess) {
-    cudaGetLastError();                // keep the launch's check clean
-    return false;
-  }
-  return a.type == cudaMemoryTypeDevice;
 }
 
 }  // namespace

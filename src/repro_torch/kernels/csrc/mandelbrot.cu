@@ -42,23 +42,30 @@
 // keeps them counted out; their z is never read. Any other budget runs a
 // loop of groups and ends in single steps, each after its own vote. U = 4
 // gives the fewest slots over the Table 1 grid's warps (their steps
-// rounded up to whole groups, against a vote per group; chip_smoke.py's
-// unroll probe times U = 1, 2, 4 and 8). Each warp walks chunks of 32
-// consecutive points a grid-stride apart, with the next chunk's c loaded
-// while this one runs. In device memory the grid is 8 blocks of 256
-// threads per SM, so a warp whose points escaped takes its next chunk at
-// once instead of idling in its block. Mapped host memory (the USM plane's
-// arrays) is read over PCIe, and there a grid of one chunk per warp reads
-// faster. Lanes past n take part in the votes with `alive` false.
+// rounded up to whole groups, against a vote per group), and was the
+// fastest of U = 1, 2, 4 and 8 there on an H100 (PERF.md). Each warp walks
+// chunks of 32 consecutive points a grid-stride apart, with the next
+// chunk's c loaded while this one runs. In device memory the grid is 8
+// blocks of 256 threads per SM, so a warp whose points escaped takes its
+// next chunk at once instead of idling in its block. Mapped host memory
+// (the USM plane's arrays) is read over PCIe, and there a grid of one
+// chunk per warp reads faster (chip_smoke.py's launch-shape probe times
+// both shapes on both kinds of memory). Lanes past n take part in the
+// votes with `alive` false.
 #include <cuda_runtime.h>
 
+#include "cuda_common.cuh"
+
 namespace {
+
+using namespace cu;
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int BLOCKS_PER_SM = 8;       // 2048 threads, a full SM
 constexpr int kUnroll = 4;
-constexpr int kMainIter = 64;          // the main path's budget (ops.py)
+constexpr int kMainIter = 64;          // the main path's budget (ops.py;
+                                       // a test holds the two equal)
 constexpr unsigned FULL = 0xffffffffu;
 
 // One step in PTX, in the plain version's order: test |z|^2 <= 4 into the
@@ -127,7 +134,7 @@ __device__ __forceinline__ int count_steps(float cr, float ci, bool in,
 
 // Each warp walks chunks of 32 consecutive points, a grid-stride apart,
 // with the next chunk's c loaded while this one runs.
-template <int U, int MAX>
+template <int MAX>
 __device__ __forceinline__ void walk(const float* __restrict__ cre,
                                      const float* __restrict__ cim,
                                      float* __restrict__ out, long long n,
@@ -149,7 +156,7 @@ __device__ __forceinline__ void walk(const float* __restrict__ cre,
       ncr = cre[next];
       nci = cim[next];
     }
-    const int count = count_steps<U, MAX>(cr, ci, i < n, max_iter);
+    const int count = count_steps<kUnroll, MAX>(cr, ci, i < n, max_iter);
     if (i < n) out[i] = (float)count;
     i = next;
     cr = ncr;
@@ -157,55 +164,14 @@ __device__ __forceinline__ void walk(const float* __restrict__ cre,
   }
 }
 
-template <int U>
 __global__ void __launch_bounds__(THREADS)
     mandelbrot_kernel(const float* __restrict__ cre,
                       const float* __restrict__ cim, float* __restrict__ out,
                       long long n, int max_iter) {
   if (max_iter == kMainIter)
-    walk<U, kMainIter>(cre, cim, out, n, max_iter);
+    walk<kMainIter>(cre, cim, out, n, max_iter);
   else
-    walk<U, 0>(cre, cim, out, n, max_iter);
-}
-
-int sm_count() {
-  static int cached[64];               // per device; a race writes the same
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
-  if (cached[dev] == 0) {
-    int sms = 0;
-    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess || sms <= 0)
-      return 132;
-    cached[dev] = sms;
-  }
-  return cached[dev];
-}
-
-// True when `p` is device memory (false for mapped host memory, and when
-// CUDA cannot tell).
-bool on_device(const void* p) {
-  cudaPointerAttributes a;
-  if (cudaPointerGetAttributes(&a, p) != cudaSuccess) {
-    cudaGetLastError();                // keep the launch's check clean
-    return false;
-  }
-  return a.type == cudaMemoryTypeDevice;
-}
-
-template <int U>
-int launch(const void* cre, const void* cim, void* out, long long n,
-           int max_iter, void* stream) {
-  long long blocks = ((n + 31) / 32 + WARPS - 1) / WARPS;
-  const long long cap = (long long)sm_count() * BLOCKS_PER_SM;
-  // in device memory, a grid the card holds at once whose warps take
-  // turns; over PCIe (mapped host memory), a chunk per warp
-  if (blocks > cap && on_device(cre) && on_device(cim) && on_device(out))
-    blocks = cap;
-  mandelbrot_kernel<U><<<(unsigned)blocks, THREADS, 0,
-                         (cudaStream_t)stream>>>(
-      (const float*)cre, (const float*)cim, (float*)out, n, max_iter);
-  return (int)cudaGetLastError();
+    walk<0>(cre, cim, out, n, max_iter);
 }
 
 }  // namespace
@@ -213,20 +179,13 @@ int launch(const void* cre, const void* cim, void* out, long long n,
 extern "C" int mandelbrot_f32(const void* cre, const void* cim, void* out,
                               long long n, int max_iter, void* stream) {
   if (n <= 0) return 0;
-  return launch<kUnroll>(cre, cim, out, n, max_iter, stream);
-}
-
-// The same kernel at another unroll (1, 2, 4 or 8): chip_smoke.py's probe
-// times it; the wrapper always runs kUnroll.
-extern "C" int mandelbrot_unroll_f32(const void* cre, const void* cim,
-                                     void* out, long long n, int max_iter,
-                                     int unroll, void* stream) {
-  if (n <= 0) return 0;
-  switch (unroll) {
-    case 1: return launch<1>(cre, cim, out, n, max_iter, stream);
-    case 2: return launch<2>(cre, cim, out, n, max_iter, stream);
-    case 4: return launch<4>(cre, cim, out, n, max_iter, stream);
-    case 8: return launch<8>(cre, cim, out, n, max_iter, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  long long blocks = ((n + 31) / 32 + WARPS - 1) / WARPS;
+  const long long cap = (long long)sm_count() * BLOCKS_PER_SM;
+  // in device memory, a grid the card holds at once whose warps take
+  // turns; over PCIe (mapped host memory), a chunk per warp
+  if (blocks > cap && on_device(cre) && on_device(cim) && on_device(out))
+    blocks = cap;
+  mandelbrot_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)cre, (const float*)cim, (float*)out, n, max_iter);
+  return (int)cudaGetLastError();
 }

@@ -33,37 +33,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cuda_common.cuh"
+
 namespace {
+
+using namespace cu;
 
 constexpr int THREADS = 256;   // a 16 x 16 thread grid
 constexpr int BK = 16;
 constexpr int PAD = 4;         // As row pad: keeps rows 16-byte aligned
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// Copy `bytes` (0, or all of the copy's 4 or 16) from global to shared
-// memory, zero-filling what is not copied.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // n contiguous floats from shared memory (n = 1, 2 or 4, aligned to n).
 template <int N>

@@ -38,7 +38,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "cuda_common.cuh"
+
 namespace {
+
+using namespace cu;
 
 constexpr int THREADS = 256;
 constexpr int BLOCKS_PER_SM = 8;       // 2048 threads, a full SM
@@ -131,20 +135,6 @@ __global__ void taylor_sin_kernel(const float* __restrict__ x,
     }
     y[i] = acc;
   }
-}
-
-int sm_count() {
-  static int cached[64];               // per device; a race writes the same
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
-  if (cached[dev] == 0) {
-    int sms = 0;
-    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess || sms <= 0)
-      return 132;
-    cached[dev] = sms;
-  }
-  return cached[dev];
 }
 
 long long grid_for(long long work) {

@@ -1,37 +1,24 @@
 // Building blocks of the bf16 tensor-core kernels (`mma.sync.m16n8k16`,
-// bf16 in, f32 accumulate): 16-byte `cp.async` copies, `ldmatrix` loads and
-// the MMA itself, with the fragment layouts they give. Included by
-// flash_attention.cu and linear_attention.cu; the build hashes it with the
-// sources and compiles only the *.cu files.
+// bf16 in, f32 accumulate): `ldmatrix` loads and the MMA itself, with the
+// fragment layouts they give, beside cuda_common.cuh's `cp.async` copies.
+// Included by flash_attention.cu and linear_attention.cu; the build hashes
+// it with the sources and compiles only the *.cu files.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cuda_common.cuh"
+
 namespace tc {
 
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// Copy `bytes` (16 or 0) of global memory into 16 bytes of shared memory,
-// zero-filling what is not copied.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   saddr(dst)),
-               "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+using cu::cp_async16;
+using cu::cp_async_commit;
+using cu::cp_async_wait;
+using cu::saddr;
 
 // Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix
 // i, and lane l receives row l / 4, columns 2 (l % 4) and + 1 of each

@@ -169,22 +169,6 @@ def test_mandelbrot_equals_plain_on_views_into_an_out_slice(dev, offset):
     assert bool((out[:5] == -1).all()) and bool((out[-5:] == -1).all())
 
 
-@pytest.mark.parametrize("unroll", [1, 2, 4, 8])
-def test_mandelbrot_unroll_entry_equals_plain(dev, unroll):
-    """chip_smoke.py's unroll probe: every unroll it times counts as the
-    plain version does."""
-    from repro_torch.kernels import _lib
-
-    cre, cim = _mandelbrot_points(4099, dev)
-    out = torch.empty_like(cre)
-    lib = _lib.library()
-    _lib.check(lib.mandelbrot_unroll_f32(
-        cre.data_ptr(), cim.data_ptr(), out.data_ptr(), cre.numel(), 67,
-        unroll, _lib.stream_of(cre)), "mandelbrot_unroll")
-    torch.testing.assert_close(out, mandelbrot_plain(cre, cim, max_iter=67),
-                               rtol=0, atol=0)
-
-
 @pytest.mark.parametrize("w", [1, 3, 4, 5, 127, 128, 129, 516, 5120])
 @pytest.mark.parametrize("lo,hi", [(0, 0), (2, 2), (1, 0)])
 def test_gaussian_equals_plain_for_every_width(dev, w, lo, hi):

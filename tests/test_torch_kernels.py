@@ -25,6 +25,7 @@ Tolerances:
   order.
 """
 import importlib
+import inspect
 import re
 
 import numpy as np
@@ -477,7 +478,7 @@ def test_mandelbrot_schedule_matches_reference(side, it):
 def test_mandelbrot_schedule_for_every_budget(max_iter):
     """667 points (the last warp ragged) over the viewport, every 7th with
     |c| up to 1e30 so that z overflows to inf and NaN on escaped lanes,
-    at every unroll the probe times."""
+    at unrolls 1, 2, 4 and 8 and the kernel's."""
     re_ = np.linspace(-2.2, 0.8, 29, dtype=np.float32)
     im = np.linspace(-1.4, 1.4, 23, dtype=np.float32)
     cre, cim = (np.ascontiguousarray(a.ravel()) for a in np.meshgrid(re_,
@@ -491,6 +492,19 @@ def test_mandelbrot_schedule_for_every_budget(max_iter):
         for want in wants:
             np.testing.assert_array_equal(got.numpy(), want)
         assert int(steps.max()) <= max(max_iter, 0)
+
+
+def test_mandelbrot_unrolled_budget_is_the_main_paths():
+    """csrc/mandelbrot.cu unrolls one budget, kMainIter, in whole groups
+    and runs any other in a loop of groups: it must be the budget the main
+    path's kernel and the wrapper default to, or the main path would take
+    the loop."""
+    main = _cu_constant("mandelbrot.cu", "kMainIter")
+    ops = importlib.import_module("repro_torch.kernels.ops")
+    budgets = {inspect.signature(fn).parameters["max_iter"].default
+               for fn in (ops._mandelbrot_kernel_impl, mandelbrot)}
+    assert budgets == {main}
+    assert main % MANDEL_UNROLL == 0
 
 
 @pytest.mark.parametrize("unroll", [1, 2, 4, 8])
