@@ -23,7 +23,7 @@ from . import _lib
 LIGHT = 0.577           # each component of the light direction
 HIT_EPS = 1e-3          # a hit needs t > HIT_EPS
 MIN_RADIUS = 1e-6       # 1 / max(r, MIN_RADIUS)
-MAX_SPHERES = 2048      # the kernel's shared-memory table (24 B a sphere)
+MAX_SPHERES = 2048      # the kernel's shared-memory table (32 B a sphere)
 
 
 def demo_spheres(num: int = 8, seed: int = 3) -> np.ndarray:

@@ -291,6 +291,108 @@ def test_rap_refuses_int64_lengths(dev):
             torch.ones(4, dtype=torch.int64, device=dev))
 
 
+def _rays(n, dev, offset=0, seed=7):
+    """n unit rays over the camera's field, each component at a float
+    offset into its own buffer."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dx, dy = (torch.rand(n, generator=g, device=dev) * 0.8 - 0.4
+              for _ in range(2))
+    dz = torch.sqrt(torch.clamp_min(1 - dx * dx - dy * dy, 0.5))
+    bufs = [torch.empty(n + offset, device=dev) for _ in range(3)]
+    for buf, a in zip(bufs, (dx, dy, dz)):
+        buf[offset:] = a
+    return [buf[offset:] for buf in bufs]
+
+
+@pytest.mark.parametrize("same_offset", [False, True])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("n", [1, 3, 4099])
+@pytest.mark.parametrize("num", [1, 7, 8, 9, 300, 2048])
+def test_raytrace_equals_plain_for_every_scene(dev, num, n, offset,
+                                                same_offset):
+    """The main path's scene size (8, unrolled) and the runtime loop (up to
+    2048 spheres, a 64 KB table), n below, at and off a multiple of 4,
+    rays at a float offset of 0-3 with out at the same offset (peeled to
+    a 16-byte boundary) or fresh (misaligned against them: ray by ray)."""
+    rays = _rays(n, dev, offset)
+    spheres = torch.from_numpy(demo_spheres(num, seed=5)).to(dev)
+    out = (torch.empty(n + offset, device=dev)[offset:] if same_offset
+           else None)
+    before = raytrace.launches
+    got = raytrace(*rays, spheres, out=out)
+    assert raytrace.launches == before + 1
+    assert torch.equal(got, raytrace_plain(*rays, spheres))
+
+
+def _rap_inputs(n, L, offset, dev, seed=3):
+    """An (n, L) row slice at a float offset, lengths below 0, 0, 1-3, L
+    and above L among random ones."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    values = torch.randn(n * L + offset, generator=g, device=dev)[
+        offset:].view(n, L)
+    lengths = torch.randint(-3, L + 4, (n,), generator=g, device=dev,
+                            dtype=torch.int32)
+    lengths[:9] = torch.tensor([-4, 0, 1, 2, 3, L, L + 1, L + 9,
+                                max(L - 1, 0)], device=dev)
+    return values, lengths
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("L", [1, 3, 4, 47, 48, 100])
+def test_rap_close_to_plain_for_every_width(dev, L, offset):
+    """16-byte chunks (L % 4 == 0 and an aligned row slice) or 4-byte ones,
+    rows within and past the chunks a lane loads up front (L = 100), a
+    ragged last warp of rows; out a slice at the same offset."""
+    n = 1000 + 37
+    values, lengths = _rap_inputs(n, L, offset, dev)
+    out = torch.empty(n + offset, device=dev)[offset:]
+    before = rap.launches
+    got = rap(values, lengths, out=out)
+    assert rap.launches == before + 1
+    torch.testing.assert_close(got, rap_plain(values, lengths), rtol=1e-5,
+                               atol=1e-6 * L)
+    assert bool((got[:2] == 0).all())
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("case", ["ray 8", "ray 9", "rap 48", "rap 47"])
+def test_ray_and_rap_on_mapped_host_memory(dev, case, offset):
+    """USM hands ray and rap mapped host memory (ray keeps its launch
+    shape there, rap takes kSegmentHost-lane segments): arrays at a float
+    offset of 0 or 1, rays equal to the plain version bit for bit, rap
+    within its tolerance."""
+    name, size = case.split()
+    size = int(size)
+    if name == "ray":
+        dev_in = [*_rays(4099, dev, offset),
+                  torch.from_numpy(demo_spheres(size, seed=5)).to(dev)]
+        fn, plain, tol = raytrace, raytrace_plain, (0.0, 0.0)
+    else:
+        dev_in = list(_rap_inputs(2053, size, offset, dev))
+        fn, plain, tol = rap, rap_plain, (1e-5, 1e-6 * size)
+    want = plain(*dev_in)
+    host = []
+    for a in [*dev_in, want]:                # out: want's shape
+        buf = np.empty(a.numel() + offset,
+                       np.int32 if a.dtype == torch.int32 else np.float32)
+        view = buf[offset:].reshape(tuple(a.shape))
+        view[...] = a.cpu().numpy()
+        host.append(view)
+    host[-1][...] = np.nan
+    maps = [dataplane._map_host(a, dev) for a in host]
+    try:
+        before = fn.launches
+        fn(*(m for m, _ in maps[:-1]), out=maps[-1][0])
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+    finally:
+        for _, starts in maps:
+            dataplane._unmap_host(starts)
+    np.testing.assert_allclose(host[-1], want.cpu().numpy(), rtol=tol[0],
+                               atol=tol[1])
+    assert not dataplane._mapped
+
+
 @pytest.mark.parametrize("memory", ["usm", "buffers"])
 @pytest.mark.parametrize("name", ["taylor", "mandelbrot", "rap", "ray"])
 def test_fused_engine_matches_unfused(dev, name, memory):
@@ -320,6 +422,12 @@ def test_fused_engine_matches_unfused(dev, name, memory):
 @pytest.mark.parametrize("name", ["taylor", "gaussian", "matmul",
                                   "mandelbrot", "ray", "rap"])
 def test_coexecution_on_gpu_and_cpu(dev, name, memory):
+    """The [cuda:0, cpu] pair at pipeline depth 2 equals the CPU unit
+    alone, under dyn16 and under static; under static each unit owns half
+    the range, so the CUDA unit serves a package by construction. (dyn16
+    hands each package to whichever worker pulls first, and a CPU unit
+    can drain all 16 of a 4099-item launch before the CUDA unit's worker
+    pulls one, so who serves there is not asserted.)"""
     n = 4099
     inputs = kernel_demo_inputs(name, n, seed=1)
     kernel = build_kernel(name)
@@ -327,21 +435,25 @@ def test_coexecution_on_gpu_and_cpu(dev, name, memory):
             CoexecSpec.builder().policy("dyn16").memory(memory).build(),
             units=counits_from_devices(["cpu"])) as rt:
         want = rt.launch(n, kernel, inputs)
-    spec = (CoexecSpec.builder().policy("dyn16").memory(memory)
-            .pipeline_depth(2).build())
-    with CoexecutorRuntime.from_spec(spec) as rt:
-        got = rt.launch(n, kernel, inputs)
-        stats = rt.last_stats
-    assert set(stats.unit_busy_s) == {"cuda:0", "cpu"}
-    # demo matmul inputs have K = 32, demo rap rows L = 48
-    np.testing.assert_allclose(got, want, rtol=1e-5,
-                               atol=1e-6 * (48 if name == "rap" else 32))
-    served = {p.unit for p in stats.packages}
-    assert 0 in served
-    if memory == "usm":
-        assert stats.data.h2d_copies == stats.data.d2h_copies == 0
-    else:
-        assert stats.data.d2h_copies == stats.num_packages
+    for policy in ("dyn16", "static"):
+        spec = (CoexecSpec.builder().policy(policy).memory(memory)
+                .pipeline_depth(2).build())
+        with CoexecutorRuntime.from_spec(spec) as rt:
+            got = rt.launch(n, kernel, inputs)
+            stats = rt.last_stats
+        assert set(stats.unit_busy_s) == {"cuda:0", "cpu"}
+        # demo matmul inputs have K = 32, demo rap rows L = 48
+        np.testing.assert_allclose(got, want, rtol=1e-5,
+                                   atol=1e-6 * (48 if name == "rap" else 32),
+                                   err_msg=policy)
+        if policy == "static":
+            served = {p.unit for p in stats.packages}
+            assert 0 in served
+            assert 1 in served
+        if memory == "usm":
+            assert stats.data.h2d_copies == stats.data.d2h_copies == 0
+        else:
+            assert stats.data.d2h_copies == stats.num_packages
     assert not dataplane._mapped      # every mapped range was released
 
 

@@ -618,3 +618,195 @@ def test_gaussian_walk_other_run_lengths(run):
     got = _gaussian_walk(t(img), 2, 0, run=run).numpy()
     np.testing.assert_array_equal(
         got, gaussian_blur_halo_plain(t(img), lo_pad=2, hi_pad=0).numpy())
+
+
+# lanes that share a row: on device memory, on mapped host memory
+RAP_SEGMENTS = tuple(_cu_constant("rap.cu", k)
+                     for k in ("kSegment", "kSegmentHost"))
+
+
+def _rap_schedule(values: np.ndarray, lengths: np.ndarray, vec: bool,
+                  seg: int) -> np.ndarray:
+    """csrc/rap.cu's schedule: warps of 32 rows (the last padded with rows
+    of length 0), ``seg`` lanes a row and 32 / seg rows at once, lane
+    ``sub`` summing the utilities of chunks sub, sub + seg, ... of 4
+    columns in order (columns past the length count as 0), the segment's
+    lanes added by xor shuffles, every lane ending with the same sum.
+    ``vec``: each chunk is one 16-byte load, else 4-byte loads of its
+    counted columns; every read is checked to lie in the row and, for
+    4-byte loads, before the length."""
+    n, L = values.shape
+    f32 = np.float32
+    out = np.full(n, np.nan, f32)
+    for r0 in range(0, n, 32):
+        lens = [min(max(int(lengths[r]), 0), L) if r < n else 0
+                for r in range(r0, r0 + 32)]
+        for lane_row in range(32):         # step * rows at once + segment
+            row, length = r0 + lane_row, lens[lane_row]
+            sums = []
+            for sub in range(seg):
+                acc = f32(0.0)
+                for c in range(sub, -(-length // 4), seg):
+                    cols = range(4 * c, 4 * c + 4)
+                    read = cols if vec else [j for j in cols if j < length]
+                    assert all(j < L for j in read), (row, c, L)
+                    for j in cols:
+                        v = values[row, j] if j < length else f32(0.0)
+                        acc = f32(acc + np.log1p(np.maximum(v, f32(0.0))))
+                sums.append(acc)
+            o = 1
+            while o < seg:
+                sums = [f32(sums[i] + sums[i ^ o]) for i in range(len(sums))]
+                o <<= 1
+            assert len(set(sums)) == 1
+            if row < n:
+                out[row] = sums[0]
+    return out
+
+
+@pytest.mark.parametrize("seg", RAP_SEGMENTS)
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("L", [1, 3, 4, 47, 48, 100])
+def test_rap_schedule_matches_plain_and_reference(L, offset, seg):
+    """Two warps of rows and a ragged third, lengths below 0, 0, 1-3, L and
+    above L among random ones, NaN in every column past a row's length (a
+    read there would show), rows of a matrix at a float offset of 0-3 (the
+    4-byte path; offset 0 with L % 4 == 0 takes 16-byte chunks), with the
+    segments device memory and mapped host memory take."""
+    n = 70
+    base = rng.normal(size=n * L + offset).astype(np.float32)
+    values = base[offset:].reshape(n, L)
+    lengths = rng.integers(-3, L + 4, size=n).astype(np.int32)
+    lengths[:9] = [-4, 0, 1, 2, 3, L, L + 1, L + 9, max(L - 1, 0)]
+    for r, length in enumerate(lengths):
+        values[r, max(length, 0):] = np.nan
+    vec = L % 4 == 0 and offset == 0
+    got = _rap_schedule(values, lengths, vec, seg)
+    want = rap_plain(t(values), t(lengths)).numpy()
+    atol = 1e-6 * L
+    assert_allclose(got, want, rtol=1e-5, atol=atol)
+    assert got[0] == got[1] == 0.0
+    j = (jnp.asarray(values), jnp.asarray(lengths))
+    assert_allclose(got, np.asarray(ref.rap(*j)), rtol=1e-5, atol=atol)
+    assert_allclose(got, np.asarray(pallas_rap(*j, bm=8)), rtol=1e-5,
+                    atol=atol)
+
+
+def test_rap_main_path_rows_load_up_front():
+    """A segment loads kRowChunks chunks of a row a turn ahead; the main
+    path's rows (the demo width 48, Table 1's L) must fit in them, else
+    they take the loop that loads a chunk at a time. Segments tile a warp."""
+    ops = importlib.import_module("repro_torch.kernels.ops")
+    assert all(32 % seg == 0 for seg in RAP_SEGMENTS)
+    assert 4 * _cu_constant("rap.cu", "kRowChunks") >= ops._RAP_DEMO_L == 48
+
+
+RAY_RAYS = _cu_constant("raytrace.cu", "kRays")
+
+
+def _ray_schedule(dx: torch.Tensor, dy: torch.Tensor, dz: torch.Tensor,
+                  spheres: torch.Tensor, head: int, vec: bool):
+    """csrc/raytrace.cu's schedule, on the plain version's f32 operations:
+    ``head`` rays one by one, then threads of kRays consecutive rays and
+    warps of 32 threads (a turn's last warp padded with zero rays), the
+    tail one by one; ``vec`` False: every ray on its own. For each sphere
+    in order every ray gets b and disc; the root, t and the hit tests run
+    only where a warp vote (one ray alone: its own test) finds disc > 0.
+
+    Returns:
+        The shades, and how many (warp, sphere) votes skipped the root.
+    """
+    n = dx.numel()
+    head = min(head, n) if vec else n
+    nv = (n - head) // RAY_RAYS if vec else 0
+    body = RAY_RAYS * nv
+    group = torch.arange(n)              # one ray alone is its own group
+    warp_rays = 32 * RAY_RAYS
+    group[head:head + body] = n + torch.arange(body) // warp_rays
+    zero, one = dx.new_zeros(()), dx.new_ones(())
+    light, eps = dx.new_tensor(0.577), dx.new_tensor(1e-3)
+    best_t = torch.full_like(dx, float("inf"))
+    shade = torch.zeros_like(dx)
+    skipped = 0
+    for cx, cy, cz, r, alb in spheres.unbind():
+        b = dx * cx + dy * cy + dz * cz
+        c = cx * cx + cy * cy + cz * cz - r * r
+        disc = b * b - c
+        pos = disc > zero
+        votes = torch.zeros(n + -(-body // warp_rays) + 1, dtype=torch.bool)
+        votes.index_put_((group,), pos, accumulate=True)
+        if body % warp_rays and c < zero:    # a padded lane's zero ray
+            votes[group[head + body - 1]] = True
+        run = votes[group]
+        skipped += int((~votes[n:n + -(-body // warp_rays)]).sum())
+        root = torch.sqrt(torch.maximum(disc[run], zero).double()).to(
+            dx.dtype)
+        t = torch.full_like(dx, float("nan"))
+        t[run] = b[run] - root
+        hit = run & pos & (t > eps) & (t < best_t)
+        nx, ny, nz = dx * t - cx, dy * t - cy, dz * t - cz
+        lam = torch.maximum(zero, (nx * light + ny * light + nz * light)
+                            * (one / torch.maximum(r, r.new_tensor(1e-6))))
+        best_t = torch.where(hit, t, best_t)
+        shade = torch.where(hit, alb * lam, shade)
+    return shade, skipped
+
+
+def _grazing_rays(n: int, spheres: np.ndarray, offset: int, seed: int):
+    """n unit rays at a float offset into their buffers: the first half a
+    diagonal sweep of the camera's field, the second aimed within 1e-4 of
+    a sphere's silhouette (disc near 0), sphere by sphere."""
+    g = np.random.default_rng(seed)
+    c, r = spheres[:, :3].astype(np.float64), spheres[:, 3].astype(np.float64)
+    k = np.sort(g.integers(0, len(spheres), n))
+    # a direction at angle asin(r/|c|) (1 +- 1e-4) from the centre's
+    axis = c[k] / np.linalg.norm(c[k], axis=1, keepdims=True)
+    side = np.cross(axis, g.normal(size=(n, 3)))
+    side /= np.linalg.norm(side, axis=1, keepdims=True)
+    ang = np.arcsin(np.clip(r[k] / np.linalg.norm(c[k], axis=1), 0, 1)) * (
+        1 + g.uniform(-1e-4, 1e-4, n))
+    d = np.cos(ang)[:, None] * axis + np.sin(ang)[:, None] * side
+    sweep = np.linspace(-0.4, 0.4, n // 2)
+    d[:n // 2] = np.stack([sweep, sweep[::-1], np.ones_like(sweep)], axis=1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    bufs = [np.empty(n + offset, np.float32) for _ in range(3)]
+    for i, buf in enumerate(bufs):
+        buf[offset:] = d[:, i]
+    return [buf[offset:] for buf in bufs]
+
+
+@pytest.mark.parametrize("num", [8, 1, 9])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("n", [4697, 1, 3])
+def test_raytrace_vote_skip_equals_plain(n, offset, num):
+    """The warp vote's skip equals the plain version bit for bit, rays at a
+    float offset of 0-3 peeling ``head`` rays to a 16-byte boundary (and,
+    out at another offset, ray by ray), n not a multiple of 4; half the
+    rays graze a silhouette."""
+    spheres = demo_spheres(num, seed=3)
+    rays = [t(a) for a in _grazing_rays(n, spheres, offset, seed=n + offset)]
+    sph = t(spheres)
+    want = raytrace_plain(*rays, sph)
+    head = (4 - offset) % 4
+    for vec in (False, True):
+        got, skipped = _ray_schedule(*rays, sph, head, vec)
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    if n > 1000:
+        assert (want > 0).sum() > 100 and (want == 0).sum() > 100
+        votes = -(-((n - head) // RAY_RAYS) // 32) * num
+        assert 0 < skipped < votes          # the vote skips some, not all
+        j = [jnp.asarray(a.numpy()) for a in (*rays, sph)]
+        assert_rays_close(got.numpy(), np.asarray(ref.raytrace(*j)), "ref")
+
+
+def test_raytrace_unrolled_scene_is_the_main_paths():
+    """csrc/raytrace.cu unrolls the sphere loop for one scene size,
+    kMainSpheres: it must be demo_spheres()' default, the scene the main
+    path's ray kernel takes when none is given, or the main path would
+    take the runtime loop."""
+    main = _cu_constant("raytrace.cu", "kMainSpheres")
+    assert inspect.signature(demo_spheres).parameters["num"].default == main
+    ops = importlib.import_module("repro_torch.kernels.ops")
+    (scene,) = [a.default for a in ops._ray_kernel_impl().args
+                if a.name == "spheres"]
+    assert scene().shape == (main, 5)
