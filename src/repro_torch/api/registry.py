@@ -348,7 +348,8 @@ def kernel_demo_inputs(name: str, n: int, *, seed: int = 0) -> list:
         seed: RNG seed (vary it for independent requests).
 
     Returns:
-        Host input arrays acceptable to the kernel's declared arguments.
+        Host input arrays acceptable to the kernel's declared arguments,
+        each owning its pages (USM on a CUDA unit maps them in place).
 
     Raises:
         KeyError: unknown kernel.
@@ -356,11 +357,14 @@ def kernel_demo_inputs(name: str, n: int, *, seed: int = 0) -> list:
     """
     import numpy as np
 
+    from ..core.dataplane import page_exclusive
+
     plugin = kernel_plugin(name)
     if plugin.demo_inputs is None:
         raise ValueError(f"kernel {plugin.name!r} registered no "
                          f"demo-input generator")
-    return plugin.demo_inputs(int(n), np.random.default_rng(seed))
+    return [page_exclusive(a) for a in
+            plugin.demo_inputs(int(n), np.random.default_rng(seed))]
 
 
 def speed_hint_policies() -> tuple[str, ...]:

@@ -5,7 +5,8 @@ The paper's runtime is configured through a tiny imperative surface
 ``CoexecSpec`` is its declarative form, ported from the reference field
 for field: a frozen dataclass tree that
 
-* configures the real engine and the runtime from one object;
+* is the one source of truth — the real engine, the discrete-event
+  simulator and the serve CLI all construct from the same object;
 * round-trips losslessly: ``CoexecSpec.from_dict(spec.to_dict()) == spec``
   and likewise through JSON, so experiment configs are artifacts;
 * validates against the plugin registry
@@ -21,10 +22,9 @@ for field: a frozen dataclass tree that
               .build())
 
 Sub-spec field metadata carries the CLI derivation (flag name, help,
-choices) the reference's CLI reads; the port keeps it so both packages'
-specs stay field-for-field equal (the CLI itself waits for ROADMAP queue
-1, item 5). A JSON written by the reference's ``CoexecSpec.to_json``
-reads back here with an equal ``to_dict()``.
+choices) consumed by :mod:`repro_torch.api.cli`, which is how the serve
+CLI grows one flag per field. A JSON written by the reference's
+``CoexecSpec.to_json`` reads back here with an equal ``to_dict()``.
 """
 from __future__ import annotations
 
@@ -494,9 +494,8 @@ class WorkloadSpec(_SubSpec):
     def build(self):
         """Materialize the profile via the workload registry.
 
-        Raises:
-            NotImplementedError: the DES profiles are not ported yet
-                (ROADMAP queue 1, item 7).
+        Returns:
+            ``(Workload, cpu_unit, gpu_unit)`` for the built-ins.
         """
         return registry.build_workload(self.name,
                                        size_scale=self.size_scale)
@@ -533,9 +532,10 @@ class TrafficSpec(_SubSpec):
 
     ``arrival="closed"`` keeps today's closed-loop sweeps (submit a
     fixed batch, drain). ``"poisson"`` and ``"burst"`` synthesize a
-    seeded open-loop trace in the reference; the traffic tier is not
-    ported yet (ROADMAP queue 1, item 7), so here the section only
-    validates and round-trips.
+    seeded open-loop trace via :func:`repro_torch.core.traffic.synthesize_trace`
+    (``launch/serve.py`` ``trace_from_spec``) — the same trace replays
+    identically on the real engine and the DES, which is what the parity
+    harness pins.
     """
 
     arrival: str = dataclasses.field(
@@ -605,8 +605,7 @@ class TrafficSpec(_SubSpec):
 class ClusterSpec(_SubSpec):
     """Elastic cluster tier: pool sizing, failure detection, autoscaling.
 
-    Configures the reference's cluster tier (not ported yet, ROADMAP
-    queue 1, item 7): the provisioned pool ceiling
+    Configures :mod:`repro_torch.core.cluster`: the provisioned pool ceiling
     and active floor, the supervisor's heartbeat/grace/straggler knobs,
     an optional committed :class:`~repro_torch.core.cluster.FailurePlan` to
     inject, and the admission-depth autoscaler's hysteresis band.
@@ -689,20 +688,19 @@ class ClusterSpec(_SubSpec):
             raise ValueError("sustain_s/idle_s/cooldown_s must be >= 0")
 
     def load_plan(self):
-        """The configured failure plan (``None`` when unset).
+        """The configured failure plan, loaded (``None`` when unset).
 
-        Raises:
-            NotImplementedError: a plan is set; the cluster tier is not
-                ported yet (ROADMAP queue 1, item 7).
+        Returns:
+            A :class:`~repro_torch.core.cluster.FailurePlan`, or ``None``.
         """
         if not self.failure_plan:
             return None
-        raise NotImplementedError(
-            "failure plans drive the elastic cluster tier, which is not "
-            "ported to torch yet (ROADMAP queue 1, item 7)")
+        from ..core.cluster import FailurePlan
+
+        return FailurePlan.load(self.failure_plan)
 
     def autoscaler_opts(self) -> dict:
-        """Keyword arguments for the cluster tier's autoscaler."""
+        """Keyword arguments for :class:`~repro_torch.core.cluster.Autoscaler`."""
         return dict(scale_up_depth=self.scale_up_depth,
                     scale_down_depth=self.scale_down_depth,
                     sustain_s=self.sustain_s, idle_s=self.idle_s,
@@ -713,11 +711,13 @@ class ClusterSpec(_SubSpec):
 class CoexecSpec(_SubSpec):
     """The single declarative description of one co-execution setup.
 
-    One object configures the real
+    One object configures everything the runtime stack needs: the real
     :class:`~repro_torch.core.engine.CoexecEngine` (via
-    :meth:`~repro_torch.core.engine.CoexecEngine.from_spec`) and the
+    :meth:`~repro_torch.core.engine.CoexecEngine.from_spec`), the
     paper-facing :class:`~repro_torch.core.runtime.CoexecutorRuntime` (via
-    ``configure``). Frozen; use :meth:`replace`, the builder,
+    ``configure``), the simulators (``simulate(..., spec=...)`` /
+    ``simulate_multi(..., spec=...)``) and the serve CLI (which derives
+    its flags from these fields). Frozen; use :meth:`replace`, the builder,
     or the sub-spec ``replace`` methods to derive variants.
     """
 

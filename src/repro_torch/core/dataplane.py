@@ -53,6 +53,7 @@ __all__ = [
     "ArgRole", "ArgSpec", "OutputSpec", "CoexecKernel", "HaloChunk",
     "as_coexec_kernel", "DataPlaneCounters", "LaunchPlan", "Pending",
     "DataPlane", "UsmDataPlane", "BuffersDataPlane", "make_plane",
+    "owns_pages", "page_aligned_zeros", "page_exclusive",
 ]
 
 _log = logging.getLogger(__name__)
@@ -208,10 +209,11 @@ class CoexecKernel:
                 trailing shapes).
 
         Returns:
-            A zeroed ``(total, *trailing)`` array of the declared dtype.
+            A zeroed ``(total, *trailing)`` array of the declared dtype
+            that owns its pages, so USM maps it in place.
         """
         trailing = self.out.trailing_shape(self.bind(inputs))
-        return np.zeros((total, *trailing), dtype=self.out.dtype)
+        return page_aligned_zeros((total, *trailing), self.out.dtype)
 
 
 def as_coexec_kernel(fn: Callable, num_args: int) -> CoexecKernel:
@@ -316,9 +318,70 @@ class DataPlaneCounters:
 # covers yet and shares the rest. With unified addressing a mapped range's
 # device address is its host address, so an array spanning several ranges
 # stays one contiguous device view.
+#
+# CUDA takes a host pointer inside a registered page for page-locked
+# memory, so a pageable copy of an array that shares a page with a mapped
+# one fails (``cudaErrorInvalidValue``). Only arrays that own their pages
+# are therefore mapped in place; any other is mapped through a page-aligned
+# copy (:func:`owns_pages`, :func:`page_exclusive`).
 _PAGE = mmap.PAGESIZE
 _mapped_lock = threading.Lock()
 _mapped: dict[int, list] = {}   # start -> [end, users]; guarded-by: _mapped_lock
+
+
+def page_aligned_zeros(shape, dtype) -> np.ndarray:
+    """A zeroed C-contiguous array that owns whole pages.
+
+    It starts on a page and its allocation runs to the end of its last
+    page, so no other allocation shares a page with it and USM maps it in
+    place (:func:`owns_pages`).
+
+    Args:
+        shape: the array's shape.
+        dtype: its dtype.
+
+    Returns:
+        A view into a private page-padded byte buffer.
+    """
+    dtype = np.dtype(dtype)
+    shape = tuple(int(d) for d in np.atleast_1d(shape))
+    nbytes = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+    buf = np.zeros(-(-nbytes // _PAGE) * _PAGE + _PAGE, np.uint8)
+    start = -buf.ctypes.data % _PAGE
+    return buf[start:start + nbytes].view(dtype).reshape(shape)
+
+
+def owns_pages(arr: np.ndarray) -> bool:
+    """Whether every page under ``arr`` lies inside its own allocation.
+
+    True when the array starts and ends on page boundaries, or when the
+    numpy array that owns its memory spans the pages it touches (as
+    :func:`page_aligned_zeros` arranges). Another view of that same
+    allocation may still share the pages: do not copy such a view
+    between host and card while the array is mapped.
+    """
+    ptr = arr.ctypes.data
+    lo = ptr - ptr % _PAGE
+    hi = -(-(ptr + arr.nbytes) // _PAGE) * _PAGE
+    if arr.nbytes == 0 or (lo == ptr and hi == ptr + arr.nbytes):
+        return True
+    root = arr
+    while isinstance(root.base, np.ndarray):
+        root = root.base
+    if root.base is not None:           # memory owned outside numpy
+        return False
+    start = root.ctypes.data
+    return start <= lo and hi <= start + root.nbytes
+
+
+def page_exclusive(arr: np.ndarray) -> np.ndarray:
+    """``arr`` if it owns its pages, else a page-aligned copy of it."""
+    arr = np.ascontiguousarray(arr)
+    if owns_pages(arr):
+        return arr
+    copy = page_aligned_zeros(arr.shape, arr.dtype)
+    np.copyto(copy, arr)
+    return copy
 
 
 def _split_pages(lo: int, hi: int, ranges) -> tuple[list, list]:
@@ -427,11 +490,13 @@ class LaunchPlan:
     it (counter updates are lock-protected, the arrays are only read and
     the output container is written in disjoint package ranges). Under
     USM it also holds the per-device views of the arrays and the mapped
-    host ranges, which :meth:`release` gives back once the launch ends.
+    host ranges, which :meth:`release` gives back once the launch ends,
+    and ``out_stage``: the page-aligned copy a CUDA unit writes when
+    ``out`` shares a page with another allocation (``None`` otherwise).
     """
 
     __slots__ = ("kernel", "inputs", "out", "total", "counters", "trailing",
-                 "_views", "_mapped_starts", "_lock")
+                 "out_stage", "_views", "_mapped_starts", "_held", "_lock")
 
     def __init__(self, kernel: CoexecKernel, inputs: list, out: np.ndarray,
                  total: int):
@@ -441,8 +506,10 @@ class LaunchPlan:
         self.total = int(total)
         self.counters = DataPlaneCounters()
         self.trailing = tuple(out.shape[1:])
+        self.out_stage: Optional[np.ndarray] = None
         self._views: dict[str, tuple] = {}  # guarded-by: _lock
         self._mapped_starts: list = []      # guarded-by: _lock
+        self._held: list = []               # guarded-by: _lock
         self._lock = threading.Lock()
 
     def add(self, **deltas: int) -> None:
@@ -456,7 +523,9 @@ class LaunchPlan:
         """In-place views of the inputs and output on ``device``.
 
         The CPU gets ``torch.from_numpy`` views; a CUDA device gets the
-        arrays page-locked and mapped (once per launch, memoized).
+        arrays page-locked and mapped (once per launch, memoized), each
+        through a page-aligned copy unless it owns its pages
+        (:func:`page_exclusive`); the output's copy is ``out_stage``.
 
         Returns:
             ``(input_views, out_view)``.
@@ -469,8 +538,14 @@ class LaunchPlan:
                 got = ([torch.from_numpy(np.asarray(a)) for a in self.inputs],
                        torch.from_numpy(self.out))
             else:
+                arrays = [page_exclusive(np.asarray(a)) for a in self.inputs]
+                if not owns_pages(self.out):
+                    self.out_stage = page_exclusive(self.out)
+                arrays.append(self.out if self.out_stage is None
+                              else self.out_stage)
+                self._held = arrays   # the views do not keep them alive
                 mapped = []
-                for a in [np.asarray(a) for a in self.inputs] + [self.out]:
+                for a in arrays:
                     view, starts = _map_host(a, device)
                     self._mapped_starts.append(starts)
                     mapped.append(view)
@@ -482,9 +557,11 @@ class LaunchPlan:
         """Drop the views and unmap the host ranges (idempotent)."""
         with self._lock:
             held, self._mapped_starts = self._mapped_starts, []
+            arrays, self._held = self._held, []
             self._views.clear()
         for starts in held:
             _unmap_host(starts)
+        del arrays                      # freed only once unmapped
 
 
 @dataclasses.dataclass
@@ -755,6 +832,9 @@ class UsmDataPlane(DataPlane):
         if pending.result.data_ptr() != pending.out.data_ptr():
             raise ValueError(f"kernel {plan.kernel.name!r} did not write "
                              f"its result into `out`")
+        if plan.out_stage is not None and unit.device.type != "cpu":
+            rows = slice(pkg.offset, pkg.offset + pkg.size)
+            plan.out[rows] = plan.out_stage[rows]
 
 
 class BuffersDataPlane(DataPlane):

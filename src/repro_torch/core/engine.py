@@ -64,7 +64,8 @@ import numpy as np
 from .admission import (AdmissionConfig, AdmissionController, AdmissionFull,
                         LaunchShed, fusion_bucket)
 from .dataplane import (ArgSpec, CoexecKernel, DataPlaneCounters,
-                        OutputSpec, as_coexec_kernel, make_plane)
+                        OutputSpec, as_coexec_kernel, make_plane,
+                        page_aligned_zeros)
 from .exec import Backend, ExecutionLoop, LaunchState, LaunchStats
 from .memory import MemoryModel
 from .package import Package
@@ -179,7 +180,8 @@ class _Launch(LaunchState):
     the :class:`RealBackend` needs to actually run packages.
     """
 
-    __slots__ = ("kernel", "inputs", "out", "adaptive", "handle", "plan")
+    __slots__ = ("kernel", "inputs", "out", "adaptive", "handle", "plan",
+                 "on_units", "outcome")
 
     def __init__(self, launch_id: int, scheduler: Scheduler, kernel: Callable,
                  inputs: Sequence[np.ndarray], out: np.ndarray,
@@ -192,6 +194,11 @@ class _Launch(LaunchState):
         self.adaptive = adaptive
         self.handle = LaunchHandle(launch_id)
         self.plan = None             # LaunchPlan, set by the engine
+        # packages pulled by an engine worker and not yet completed by
+        # it, zombies of a killed unit included (guarded by the engine's
+        # lock), and the result or error waiting for them to drain
+        self.on_units = 0
+        self.outcome = None
 
 
 def _fuse_key(config: AdmissionConfig, scheduler: Scheduler,
@@ -278,6 +285,9 @@ class RealBackend(Backend):
         self.board = board
         self.condition = condition
         self.loop = None        # set by the engine for elastic membership
+        # set by the engine: a launch resolves only once none of its
+        # packages runs on a unit and its arrays are unmapped (settle)
+        self.settles = False
 
     # -- substrate contract -------------------------------------------------
     def now(self) -> float:
@@ -401,17 +411,19 @@ class RealBackend(Backend):
         # bucket; exact-shape fusion has bucket == total (no padding)
         bucket = first.fuse_bucket or max(m.scheduler.total for m in members)
 
-        def padded(a: np.ndarray) -> np.ndarray:
-            a = np.asarray(a)
-            if a.shape[0] == bucket:
-                return a
-            pad = [(0, bucket - a.shape[0])] + [(0, 0)] * (a.ndim - 1)
-            return np.pad(a, pad)
+        def stacked(j: int) -> np.ndarray:
+            # zero pad rows past each member's extent; the batch owns its
+            # pages, so USM maps it in place
+            a = np.asarray(first.inputs[j])
+            batch = page_aligned_zeros((len(members), bucket, *a.shape[1:]),
+                                       a.dtype)
+            for k, m in enumerate(members):
+                batch[k, :np.asarray(m.inputs[j]).shape[0]] = m.inputs[j]
+            return batch
 
-        inputs = [np.stack([padded(m.inputs[j]) for m in members])
-                  for j in range(len(first.inputs))]
-        out = np.zeros((len(members), bucket, *first.out.shape[1:]),
-                       first.out.dtype)
+        inputs = [stacked(j) for j in range(len(first.inputs))]
+        out = page_aligned_zeros((len(members), bucket, *first.out.shape[1:]),
+                                 first.out.dtype)
         n_units = len(self.units)
         sched = DynamicScheduler(len(members), n_units,
                                  num_packages=min(len(members), n_units))
@@ -450,13 +462,45 @@ class RealBackend(Backend):
     def deliver(self, launch: _Launch) -> None:
         """Resolve the launch's future with its (now written) output."""
         launch.handle.stats = launch.stats
-        launch.handle._future.set_result(launch.out)
+        self._resolve(launch, launch.out)
 
     def fail(self, launch: _Launch, err: BaseException) -> None:
         """Resolve the launch's future with its failure."""
         if launch.fused:
             launch.plan.release()     # a member: its own plan never ran
-        launch.handle._future.set_exception(err)
+        self._resolve(launch, err)
+
+    def _resolve(self, launch: _Launch, outcome) -> None:
+        """Resolve now, or, under an engine, once the launch settles.
+
+        Under USM a CUDA unit reads and writes the launch's arrays
+        through their page-locked mapping, so the caller gets them back
+        only when no package of the launch (a killed unit's zombie
+        included) runs on a unit and the mapping is gone: a copy the
+        caller makes of ``out`` can then never race the unmapping.
+        """
+        if self.settles:
+            if launch.on_units:
+                launch.outcome = outcome    # settle() resolves it
+                return
+            if launch.plan is not None:
+                launch.plan.release()
+        _set_outcome(launch, outcome)
+
+    def settle(self, launch: _Launch) -> None:
+        """Unmap a launch none of whose packages runs, then resolve it."""
+        launch.plan.release()
+        outcome, launch.outcome = launch.outcome, None
+        if outcome is not None:
+            _set_outcome(launch, outcome)
+
+
+def _set_outcome(launch: _Launch, outcome) -> None:
+    """Set the launch's future to its output or its error."""
+    if isinstance(outcome, BaseException):
+        launch.handle._future.set_exception(outcome)
+    else:
+        launch.handle._future.set_result(outcome)
 
 
 class CoexecEngine:
@@ -507,6 +551,7 @@ class CoexecEngine:
         self._cv = threading.Condition()
         self.backend = RealBackend(self.units, self.plane, board=self.board,
                                    condition=self._cv)
+        self.backend.settles = True
         self.loop = ExecutionLoop(self.backend,
                                   [u.name for u in self.units], cfg)
         self.backend.loop = self.loop   # dead-unit dispatch guard
@@ -609,6 +654,29 @@ class CoexecEngine:
             moved = self.loop.unit_lost(unit_idx)
             self._cv.notify_all()
         return moved
+
+    def kill_unit_when_held(self, unit_idx: int, handle: LaunchHandle,
+                            poll_s: float = 1e-4) -> Optional[int]:
+        """Kill a unit the moment it holds a package of a running launch.
+
+        The check and the kill happen under the engine's lock, so the
+        package cannot complete in between.
+
+        Args:
+            unit_idx: index of the unit to fail.
+            handle: the running launch to watch.
+            poll_s: seconds between checks.
+
+        Returns:
+            What :meth:`kill_unit` returns, or ``None`` when the launch
+            finished before the unit held a package.
+        """
+        while not handle.done():
+            with self._cv:
+                if self.loop.in_flight_of(unit_idx):
+                    return self.kill_unit(unit_idx)
+            time.sleep(poll_s)
+        return None
 
     def join_unit(self, unit_idx: int) -> None:
         """Bring a previously killed unit back into the pool.
@@ -778,19 +846,20 @@ class CoexecEngine:
 
     def _complete(self, launch: _Launch, pkg: Package,
                   error: Optional[BaseException] = None) -> None:
-        """Record one package in the loop; release the plan once settled.
+        """Record one package in the loop; settle the launch once drained.
 
-        A launch's mapped host ranges (USM on a CUDA unit) are unmapped
-        only when it is finalized *and* no package of it is still in
-        flight on any unit — a failed launch may have siblings running.
+        A launch's mapped host ranges (USM on a CUDA unit) are unmapped,
+        and its future resolved, only when it is finalized *and* no
+        package of it still runs on any unit — a failed launch may have
+        siblings running, a killed unit a zombie.
         """
         with self._cv:
             self.loop.complete(launch, pkg, error=error)
-            settled = (launch.finalized and launch.outstanding == 0
-                       and launch.pending_reissue == 0)
+            launch.on_units -= 1
+            settled = launch.finalized and launch.on_units == 0
             self._cv.notify_all()
         if settled:
-            launch.plan.release()
+            self.backend.settle(launch)
 
     def _worker(self, unit_idx: int) -> None:
         """One Coexecution Unit's management thread, pipelined per unit.
@@ -842,6 +911,8 @@ class CoexecEngine:
                     self.backend.wait_next_event(
                         timeout=None if ripen is None else max(ripen, 1e-4))
                     work = self.loop.pull(unit_idx, force_flush=self._stop)
+                if work is not None:
+                    work[0].on_units += 1
             if work is None:
                 busy_floor = self._retire_oldest(unit_idx, inflight,
                                                  busy_floor)

@@ -10,17 +10,49 @@ synchronously. How chunks reach the unit (in-place USM views vs staged
 per-package buffers) is decided by the data plane
 (:mod:`repro_torch.core.dataplane`), which drives :meth:`TorchUnit.dispatch`.
 
-The discrete-event ``SimUnit`` of the reference waits for the DES slice.
+The discrete-event simulator's :class:`SimUnit` is the other substrate: a
+calibrated relative speed plus an irregularity exponent, priced in numpy
+exactly as in the reference.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import threading
-from typing import Any, Callable, Sequence
+from typing import Any, Callable, Optional, Sequence
 
+import numpy as np
 import torch
 
 from .dataplane import Pending
+
+
+@dataclasses.dataclass(frozen=True)
+class SimUnit:
+    """Discrete-event-simulated device for scheduler evaluation.
+
+    speed   — work-items/second on unit-weight data.
+    alpha   — irregularity exponent: cost(item) = weight**alpha / speed.
+              alpha > 1 models divergence-sensitive devices (the paper's
+              iGPU on Ray/Mandelbrot); alpha = 1 is cost ∝ weight.
+    setup_s — one-time init before the unit joins the Commander loop
+              (queue/context creation; the paper's initialization phase).
+    kind    — energy-model class ("cpu" / "gpu").
+    """
+
+    name: str
+    kind: str
+    speed: float
+    alpha: float = 1.0
+    setup_s: float = 2e-3
+
+    def package_seconds(self, weights_prefix: Optional[np.ndarray],
+                        offset: int, size: int) -> float:
+        """Compute time for items [offset, offset+size)."""
+        if weights_prefix is None:  # regular kernel: every item costs 1
+            return size / self.speed
+        w = weights_prefix[offset + size] - weights_prefix[offset]
+        return float(w) / self.speed
 
 
 class TorchUnit:

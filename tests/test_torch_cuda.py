@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from repro_torch.api import CoexecSpec, build_kernel, kernel_demo_inputs
-from repro_torch.core import (CoexecEngine, CoexecutorRuntime,
+from repro_torch.core import (CoexecEngine, CoexecutorRuntime, MemoryModel,
                               counits_from_devices)
 from repro_torch.core import dataplane
 from repro_torch.kernels.matmul import TILES
@@ -605,3 +605,187 @@ def test_lm_kernels_never_run_the_plain_version_on_cuda(dev, monkeypatch):
     a = torch.randn(2, 64, 16, device=dev)
     ld = torch.zeros(2, 64, device=dev)
     assert la_mod.linear_attention(a, a, a, ld).shape == a.shape
+
+
+# -- the serve CLI's real mode and the cluster tier on [cuda:0, cpu] ------
+
+SERVE_TOL = {"taylor": (1e-5, 1e-6), "gaussian": (1e-5, 1e-6),
+             "matmul": (1e-5, 1e-6 * 32), "mandelbrot": (0.0, 0.0),
+             "ray": (0.0, 1e-4), "rap": (1e-5, 1e-6 * 48)}
+WRAPPERS = {"taylor": taylor_sin, "gaussian": gaussian_blur_halo,
+            "matmul": matmul, "mandelbrot": mandelbrot, "ray": raytrace,
+            "rap": rap}
+
+
+def _plain_on_host(name, inputs):
+    """The kernel's plain version on the whole host input (CPU tensors)."""
+    t = [torch.from_numpy(np.asarray(a)) for a in inputs]
+    if name == "taylor":
+        return taylor_sin_plain(t[0]).numpy()
+    if name == "gaussian":
+        padded = torch.nn.functional.pad(t[0], (0, 0, 2, 2))
+        return gaussian_blur_halo_plain(padded).numpy()
+    if name == "matmul":
+        return matmul_plain(*t).numpy()
+    if name == "mandelbrot":
+        return mandelbrot_plain(*t).numpy()
+    if name == "ray":
+        return raytrace_plain(*t[:3], torch.from_numpy(demo_spheres())).numpy()
+    return rap_plain(*t).numpy()
+
+
+def _assert_plain(name, got, inputs):
+    rtol, atol = SERVE_TOL[name]
+    want = _plain_on_host(name, inputs)
+    if name == "ray":       # a silhouette ray may flip (0.1 %)
+        assert (np.abs(got - want) > atol).mean() <= 1e-3
+    else:
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("memory", ["usm", "buffers"])
+@pytest.mark.parametrize("name", ["taylor", "gaussian", "matmul",
+                                  "mandelbrot", "ray", "rap"])
+def test_serve_real_rows_on_gpu_and_cpu(dev, name, memory):
+    """``coexec_real_rows`` on the default [cuda:0, cpu] units serves every
+    request of every policy through the hand kernel, each output equal
+    to the plain version within its tolerance."""
+    from repro_torch.launch import serve
+
+    spec = serve.default_serve_spec()
+    spec = spec.replace(
+        workload=spec.workload.replace(kernel=name, items=4099, requests=3,
+                                       concurrent=2),
+        memory=spec.memory.replace(model=memory))
+    seen = []
+
+    def check(policy, i, inputs, out):
+        _assert_plain(name, out, inputs)
+        seen.append((policy, i))
+
+    before = WRAPPERS[name].launches
+    rows = serve.coexec_real_rows(spec, on_result=check)
+    assert WRAPPERS[name].launches > before
+    assert len(seen) == 3 * len(rows) == 3 * len(serve._sweep_policies(spec))
+    for row in rows:
+        assert row["requests"] == 3
+        assert 0.0 <= row["device_idle_frac"] <= 1.0
+        assert row["host_overhead_frac"] >= 0.0
+    assert not dataplane._mapped
+
+
+def test_engine_kill_mid_launch_on_gpu_and_cpu(dev):
+    """Kill the CPU unit while it holds a package, then (after it joins
+    again) cuda:0: the survivor finishes, the cover is exact, the lost
+    range is re-issued and the output equals the plain version."""
+    from repro_torch.core import DynamicScheduler, validate_cover
+
+    n = 1 << 20
+    name = "mandelbrot"
+    kernel = build_kernel(name)
+    inputs = kernel_demo_inputs(name, n, seed=4)
+    spec = CoexecSpec.builder().policy("dynamic").build()
+    with CoexecEngine.from_spec(spec) as engine:
+        assert [u.device.type for u in engine.units] == ["cuda", "cpu"]
+        for victim in (1, 0):
+            for _ in range(20):
+                reissued = engine.loop.reissued
+                handle = engine.submit(
+                    DynamicScheduler(n, 2, num_packages=64), kernel, inputs,
+                    kernel.alloc_out(n, inputs))
+                moved = engine.kill_unit_when_held(victim, handle)
+                out = handle.result(timeout=300)
+                validate_cover(handle.stats.packages, n)
+                _assert_plain(name, out, inputs)
+                if moved is not None:
+                    break
+            assert moved is not None and moved > 0
+            assert engine.loop.reissued > reissued
+            assert victim in engine.loop.dead_units
+            engine.join_unit(victim)
+            assert engine.loop.dead_units == set()
+    assert not dataplane._mapped
+
+
+def test_serve_real_without_cuda_errors_and_runs_nothing(dev, monkeypatch,
+                                                         capsys):
+    """``--coexec real`` on a host whose CUDA is unavailable is a usage
+    error: no unit is built and no kernel runs on the CPU instead."""
+    from repro_torch.launch import serve
+
+    before = {k: fn.launches for k, fn in WRAPPERS.items()}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exc:
+        serve.main(["--coexec", "real", "--n", "4096", "--requests", "2"])
+    assert exc.value.code == 2
+    assert "CUDA is not available" in capsys.readouterr().err
+    assert {k: fn.launches for k, fn in WRAPPERS.items()} == before
+
+
+
+def test_usm_leaves_a_neighbour_sharing_a_page_pageable(dev):
+    """USM page-locks whole pages. An input and an output that share their
+    pages with other memory are mapped through page-aligned copies, so
+    the neighbour's pageable copies to and from the card still work
+    while the launch holds its arrays mapped, and the result lands in
+    the caller's output."""
+    import mmap
+
+    n = 3000
+    page = mmap.PAGESIZE
+    buf = mmap.mmap(-1, 16 * page)
+    x = np.frombuffer(buf, np.float32, count=n, offset=64)
+    x[:] = np.random.default_rng(5).uniform(-2, 2, n)
+    out = np.frombuffer(buf, np.float32, count=n, offset=64 + 4 * n)
+    neighbour = np.frombuffer(buf, np.float32, count=256,
+                              offset=64 + 8 * n)
+    assert not dataplane.owns_pages(x) and not dataplane.owns_pages(out)
+    kernel = build_kernel("taylor")
+    plane = dataplane.make_plane(MemoryModel.USM)
+    units = counits_from_devices(["cuda:0"])
+    plan = plane.plan(kernel, [x], out, n, units=units)
+    try:
+        assert dataplane._mapped
+        neighbour[:] = 3.0
+        on_card = torch.from_numpy(neighbour).to(dev)
+        torch.testing.assert_close(on_card, torch.full((256,), 3.0,
+                                                       device=dev))
+        torch.from_numpy(neighbour).copy_(torch.arange(256.0, device=dev))
+        assert neighbour[255] == 255.0
+        assert plan.out_stage is not None
+    finally:
+        plan.release()
+    assert not dataplane._mapped
+    spec = CoexecSpec.builder().policy("dynamic").memory("usm").build()
+    with CoexecutorRuntime.from_spec(spec, units=units) as rt:
+        got = rt.launch(n, kernel, [x], out=out)
+    assert got is out
+    np.testing.assert_allclose(out, taylor_sin_plain(torch.from_numpy(
+        x.copy())).numpy(), rtol=1e-5, atol=1e-6)
+    assert not dataplane._mapped
+
+
+def test_served_requests_copy_to_the_card_while_others_are_mapped(dev):
+    """``on_result`` copies each served taylor request (1 M items) to the
+    card and checks it there while up to 7 others are still mapped under
+    USM: the arrays the serve path allocates own their pages."""
+    from repro_torch.launch import serve
+
+    spec = serve.default_serve_spec()
+    spec = spec.replace(
+        workload=spec.workload.replace(kernel="taylor", items=1_000_000,
+                                       requests=16, concurrent=8),
+        memory=spec.memory.replace(model="usm"))
+    seen = []
+
+    def check(policy, i, inputs, out):
+        got = torch.from_numpy(out).to(dev)
+        want = taylor_sin_plain(torch.from_numpy(inputs[0]).to(dev))
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        seen.append(i)
+
+    rows = serve.coexec_real_rows(spec, policies=("dynamic", "static"),
+                                  on_result=check)
+    assert sorted(seen) == sorted(list(range(16)) * 2)
+    assert [r["requests"] for r in rows] == [16, 16]
+    assert not dataplane._mapped

@@ -2,7 +2,9 @@
 
 An AST scan of every module under ``src/repro_torch`` finds no import of
 ``jax`` or ``repro``, and a fresh interpreter that imports the port's
-packages has neither in ``sys.modules`` afterwards.
+packages (the DES, traffic, cluster and energy tiers and the serve CLI
+among them) and builds a DES profile through the registry has neither in
+``sys.modules`` afterwards.
 """
 import ast
 import os
@@ -33,7 +35,9 @@ def test_scan_covers_the_package():
                    "kernels/ops.py", "kernels/raytrace.py", "kernels/rap.py",
                    "configs/base.py", "models/model.py", "models/convert.py",
                    "kernels/flash_attention.py",
-                   "kernels/linear_attention.py", "launch/serve.py"):
+                   "kernels/linear_attention.py", "launch/serve.py",
+                   "core/energy.py", "core/sim.py", "core/traffic.py",
+                   "core/cluster.py", "core/workloads.py", "api/cli.py"):
         assert f"repro_torch/{module}" in names
 
 
@@ -47,7 +51,11 @@ def test_module_imports_neither_jax_nor_reference(path):
 def test_import_leaves_no_jax_or_reference_in_sys_modules():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels, "
             "repro_torch.api, repro_torch.configs, repro_torch.models, "
-            "repro_torch.launch.serve\n"
+            "repro_torch.launch.serve, repro_torch.api.cli, "
+            "repro_torch.core.sim, repro_torch.core.traffic, "
+            "repro_torch.core.cluster, repro_torch.core.energy\n"
+            "from repro_torch.core import paper_workload\n"
+            "paper_workload('mandelbrot')\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad); sys.exit(1 if bad else 0)\n")

@@ -18,6 +18,7 @@ For each of the six paper kernels × {usm, buffers} × pipeline depth
 Within the port, USM and BUFFERS agree bitwise and USM makes no copy.
 """
 import json
+import mmap
 
 import numpy as np
 import pytest
@@ -200,6 +201,64 @@ def test_mapped_pages_split_into_disjoint_ranges(lo, hi, ranges, hits,
     from repro_torch.core.dataplane import _split_pages
 
     assert _split_pages(lo, hi, ranges) == (hits, gaps)
+
+
+@pytest.mark.parametrize("shape,dtype", [((5,), np.float32),
+                                         ((3, 48), np.int32),
+                                         ((1025,), np.uint8),
+                                         ((0, 8), np.float32), ((), np.int64)])
+def test_page_aligned_zeros_own_their_pages(shape, dtype):
+    """USM maps an array in place only when no other allocation shares
+    its pages; the port's own arrays are allocated so."""
+    from repro_torch.core.dataplane import (_PAGE, owns_pages,
+                                            page_aligned_zeros)
+
+    a = page_aligned_zeros(shape, dtype)
+    assert a.shape == shape and a.dtype == dtype and not a.any()
+    assert a.flags.c_contiguous and owns_pages(a)
+    if a.nbytes:
+        assert a.ctypes.data % _PAGE == 0
+        root = a.base
+        while isinstance(root.base, np.ndarray):
+            root = root.base
+        end = -(-(a.ctypes.data + a.nbytes) // _PAGE) * _PAGE
+        assert end <= root.ctypes.data + root.nbytes
+
+
+@pytest.mark.parametrize("offset,count,owns", [
+    (0, mmap.PAGESIZE, True),       # one whole page of a page-aligned map
+    (0, 2 * mmap.PAGESIZE, True),
+    (64, 1024, False),              # inside a page other memory may share
+    (mmap.PAGESIZE - 8, 16, False),  # straddles a page boundary
+    (100, 0, True),                 # empty: touches no page
+])
+def test_owns_pages_of_memory_outside_numpy(offset, count, owns):
+    """Memory numpy does not own counts as the array's own only where the
+    array starts and ends on page boundaries; page_exclusive copies the
+    rest into an array that owns its pages, values unchanged."""
+    from repro_torch.core.dataplane import owns_pages, page_exclusive
+
+    buf = mmap.mmap(-1, 4 * mmap.PAGESIZE)
+    a = np.frombuffer(buf, np.uint8, count=count, offset=offset)
+    assert owns_pages(a) == owns
+    b = page_exclusive(a)
+    assert owns_pages(b) and (b is a) == owns
+    np.testing.assert_array_equal(b, a)
+
+
+@pytest.mark.parametrize("name", KERNELS)
+def test_demo_inputs_and_outputs_own_their_pages(name):
+    """What the serve path allocates maps in place under USM, so copying
+    a served request between host and card never meets a page another
+    launch holds locked."""
+    from repro_torch.core.dataplane import owns_pages
+
+    kernel = build_kernel(name)
+    inputs = kernel_demo_inputs(name, 1000, seed=1)
+    for got, want in zip(inputs, ref_demo_inputs(name, 1000, seed=1)):
+        assert owns_pages(got)
+        np.testing.assert_array_equal(got, np.asarray(want))
+    assert owns_pages(kernel.alloc_out(1000, inputs))
 
 
 @pytest.mark.timeout(60)
