@@ -49,6 +49,8 @@ SIGNATURES = {
     # q, k, v, log_decay, out, BH, T, Dk, Dv (bf16: then the Dv tile)
     "linear_attention_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "linear_attention_bf16": (_P, _P, _P, _P, _P, *(_I,) * 5, _P),
+    # q, k, v, log_decay, scores scratch, out, BH, T, Dk, Dv, bf16
+    "linear_attention_wide": (_P, _P, _P, _P, _P, _P, *(_I,) * 5, _P),
     "host_register_mapped": (_P, _LL),
     "host_device_pointer": (_P, ctypes.POINTER(_P)),
     "host_unregister": (_P,),

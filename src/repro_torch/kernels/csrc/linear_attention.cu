@@ -5,7 +5,7 @@
 // `linear_attention` (body `_gla_kernel`). Per head: S_t = exp(ld_t) S_{t-1}
 // + k_t^T v_t and o_t = q_t S_t, for q, k (BH, T, Dk), v (BH, T, Dv) (all f32
 // or all bf16), log-decays ld (BH, T) f32 (entries <= 0); out (BH, T, Dv) in
-// q's type. Dk <= 128, any Dv. The TPU kernel carries S in scratch across a
+// q's type. Dk <= 1024, any Dv. The TPU kernel carries S in scratch across a
 // sequential grid axis; blocks here run in no order, so one block owns a
 // (head, Dv tile) and walks the chunks itself with S on chip. Per chunk of
 // C = 64 steps (padded steps take log-decay 0 and zero q, k, v, which
@@ -64,6 +64,25 @@
 // 32-column Dv tile), S in shared memory in f32; the C x C scores are
 // recomputed for each Dv tile. Rows of q and k have an odd stride, so the
 // rows a warp reads fall in distinct banks.
+//
+// Dk in (128, 1024], f32 or bf16 inputs (xlstm-1.3b's mLSTM: Dk 1024,
+// Dv 1025 with the normaliser's ones-column): `wide`, f32 on the CUDA
+// cores. A head's state is 1024 x 1025 f32 (4.2 MB), so no block can own
+// it, and a chunk of Q alone is 64 x 1024. Two kernels: the first, one
+// block per (chunk, head), streams Q and K through in 64-dim tiles and
+// writes the chunk's masked, decayed scores A once, to a (BH, chunks, 64,
+// 64) f32 scratch (2 MB at BH 16, T 512), so the 33 Dv tiles of a head do
+// not form them again; the second, one block of 256 threads per (32-column
+// Dv tile, head), holds its (Dk, 32) slice of S in shared memory (128 KB
+// at Dk 1024, 190 KB in all: one block an SM) and walks the chunks: A V,
+// then per 64-dim tile of Q and K, the tile's rows of S feed the outputs
+// (q . S) before the update (K o w)^T V rewrites them. Each thread owns 2
+// rows x 4 adjacent columns (16-byte reads of S and V). Bound: operations,
+// the chunk form's causal count at its best chunk length c (c = 23 here),
+// (c + 1)(Dk + Dv) + 4 Dk Dv + Dk Dv / c a step (35.2 GFLOP at BH 16,
+// T 512, fewer than the recurrence's 5 Dk Dv): 0.52 ms at the CUDA cores'
+// f32 peak, 0.036 ms at the tensor cores' bf16 peak, against 0.02 ms of
+// bf16 bytes; this path is a simple first design, far from either.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -77,6 +96,45 @@ constexpr int C = 64;         // steps per chunk
 constexpr int DVT = 32;       // Dv columns per block (f32 path)
 constexpr int THREADS = 256;  // f32 path
 constexpr int DKMAX = 128;
+
+// Inclusive scan of a chunk's C = 64 log-decays by one warp, lane l holding
+// steps 2l and 2l + 1 (a and b): writes cum and returns the chunk's total.
+__device__ __forceinline__ float scan_pair(float a, float b, int lane,
+                                          float* cum) {
+  float s = a + b;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float up = __shfl_up_sync(0xffffffffu, s, o);
+    if (lane >= o) s += up;
+  }
+  float prev = __shfl_up_sync(0xffffffffu, s, 1);
+  if (lane == 0) prev = 0.0f;
+  cum[2 * lane] = prev + a;
+  cum[2 * lane + 1] = s;
+  return __shfl_sync(0xffffffffu, s, 31);
+}
+
+// Warp 0 loads chunk t0's log-decays (zero past seq) and scans them into
+// cum; with ecum given, also exp(cum_i), w_j = exp(total - cum_j) and
+// exp(total).
+__device__ __forceinline__ void scan_chunk(const float* ldh, int t0, int seq,
+                                           float* cum, float* ecum, float* w,
+                                           float* etotal) {
+  const int lane = threadIdx.x;
+  const int t = t0 + 2 * lane;
+  const float a = t < seq ? ldh[t] : 0.0f;
+  const float b = t + 1 < seq ? ldh[t + 1] : 0.0f;
+  const float total = scan_pair(a, b, lane, cum);
+  if (ecum != nullptr) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {     // the lane's own entries of cum
+      const int j = 2 * lane + e;
+      ecum[j] = expf(cum[j]);
+      w[j] = expf(total - cum[j]);
+    }
+    if (lane == 0) *etotal = expf(total);
+  }
+}
 
 __global__ void __launch_bounds__(THREADS)
 linear_attention_kernel(const float* __restrict__ q,
@@ -125,30 +183,7 @@ linear_attention_kernel(const float* __restrict__ q,
       vs[i] = (t < seq && col < Dv)
                   ? vh[(long long)t * Dv + col] : 0.0f;
     }
-    if (tid < 32) {                    // inclusive scan of the log-decays
-      const int t = t0 + 2 * tid;
-      const float a = t < seq ? ldh[t] : 0.0f;
-      const float b = t + 1 < seq ? ldh[t + 1] : 0.0f;
-      float s = a + b;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float up = __shfl_up_sync(0xffffffffu, s, o);
-        if (tid >= o) s += up;
-      }
-      float prev = __shfl_up_sync(0xffffffffu, s, 1);
-      if (tid == 0) prev = 0.0f;
-      cum[2 * tid] = prev + a;
-      cum[2 * tid + 1] = s;
-      __syncwarp();
-      const float total = __shfl_sync(0xffffffffu, s, 31);
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int j = 2 * tid + e;
-        ecum[j] = expf(cum[j]);
-        w[j] = expf(total - cum[j]);
-      }
-      if (tid == 0) *etotal = expf(total);
-    }
+    if (tid < 32) scan_chunk(ldh, t0, seq, cum, ecum, w, etotal);
     __syncthreads();
 
     // -- decayed causal scores A (a 4 x 4 micro-tile per thread) -----------
@@ -383,21 +418,8 @@ linear_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();                // chunk c's tiles and S are whole
 
     // inclusive scan of the chunk's log-decays, lane l owning steps 2l, 2l+1
-    float total;
-    {
-      float s = ld_a + ld_b;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float up = __shfl_up_sync(0xffffffffu, s, o);
-        if (lane >= o) s += up;
-      }
-      float prev = __shfl_up_sync(0xffffffffu, s, 1);
-      if (lane == 0) prev = 0.0f;
-      wcum[2 * lane] = prev + ld_a;
-      wcum[2 * lane + 1] = s;
-      total = __shfl_sync(0xffffffffu, s, 31);
-      __syncwarp();
-    }
+    const float total = scan_pair(ld_a, ld_b, lane, wcum);
+    __syncwarp();
     const bf16* Qt = Qs + buf * C * LDK;
     const bf16* Kt = Ks + buf * C * LDK;
     const bf16* Vt = Vs + buf * C * LDV;
@@ -616,6 +638,251 @@ int dispatch(const void* q, const void* k, const void* v,
 
 }  // namespace tensor_core
 
+// ---- Dk > 128 (xLSTM's 1024-wide heads): two passes on the CUDA cores ------
+namespace wide {
+
+constexpr int THREADS = 256;
+constexpr int DKT = 64;       // key dims per streamed tile of Q and K
+constexpr int DVT = 32;       // Dv columns per block of the state pass
+constexpr int DKW = 1024;     // the widest key dim
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+// Pass 1, one block per (chunk, head): the chunk's decayed causal scores
+// A_ij = (q_i . k_j) exp(cum_i - cum_j) for i >= j (else 0), Q and K
+// streamed through in tiles of DKT key dims, into A (BH, chunks, C, C).
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+scores_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const float* __restrict__ log_decay, float* __restrict__ A,
+              int seq, int Dk) {
+  __shared__ float qs[C][DKT + 1];
+  __shared__ float ks[C][DKT + 1];
+  __shared__ float cum[C];
+  const int tid = threadIdx.x;
+  const int chunk = blockIdx.x, bh = blockIdx.y, t0 = chunk * C;
+  const long long row0 = (long long)bh * seq;
+  const T* qh = q + row0 * Dk;
+  const T* kh = k + row0 * Dk;
+  if (tid < 32)
+    scan_chunk(log_decay + row0, t0, seq, cum, nullptr, nullptr, nullptr);
+
+  const int ti = tid >> 4, tj = tid & 15;
+  float s[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[r][c] = 0.0f;
+  for (int d0 = 0; d0 < Dk; d0 += DKT) {
+    __syncthreads();                   // the last tile is consumed
+    for (int i = tid; i < C * DKT; i += THREADS) {
+      const int r = i / DKT, d = i % DKT, t = t0 + r, dd = d0 + d;
+      const bool in = t < seq && dd < Dk;
+      const long long g = (long long)t * Dk + dd;
+      qs[r][d] = in ? to_f(qh[g]) : 0.0f;
+      ks[r][d] = in ? to_f(kh[g]) : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int d = 0; d < DKT; ++d) {
+      float a[4], b[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) a[r] = qs[ti * 4 + r][d];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) b[c] = ks[tj + 16 * c][d];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[r][c] = fmaf(a[r], b[c], s[r][c]);
+    }
+  }
+  float* Ah = A + ((long long)bh * gridDim.x + chunk) * C * C;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = ti * 4 + r;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int j = tj + 16 * c;
+      Ah[i * C + j] = i >= j ? s[r][c] * expf(cum[i] - cum[j]) : 0.0f;
+    }
+  }
+}
+
+// Pass 2, one block per (Dv tile of DVT columns, head), walking the chunks
+// in order with the (Dk, DVT) f32 state S in shared memory. Per chunk:
+// o_i = sum_j A_ij v_j + exp(cum_i) (q_i . S), then S <- exp(total) S +
+// sum_j (k_j w_j)^T v_j; Q and K stream through in tiles of DKT key dims,
+// and each tile's rows of S are read for the outputs before they are
+// updated. Thread (tr, tc) owns rows tr and tr + 32 (of the chunk, and of
+// each tile of S) and the 4 adjacent columns 4 tc .. 4 tc + 3.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+state_kernel(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, const float* __restrict__ log_decay,
+             const float* __restrict__ A, T* __restrict__ out, int seq,
+             int Dk, int Dv) {
+  extern __shared__ __align__(16) float smem_w[];
+  constexpr int LDA = C + 1, LDT = DKT + 1;
+  float* S = smem_w;                   // [Dk][DVT]
+  float* vs = S + Dk * DVT;            // [C][DVT]
+  float* As = vs + C * DVT;            // [C][LDA]
+  float* qs = As + C * LDA;            // [C][LDT]
+  float* kw = qs + C * LDT;            // [C][LDT]: k_j w_j
+  float* cum = kw + C * LDT;           // [C]
+  float* ecum = cum + C;               // [C]
+  float* w = ecum + C;                 // [C]
+  float* etotal = w + C;               // [1]
+
+  const int tid = threadIdx.x, tr = tid >> 3, tc = tid & 7;
+  const int bh = blockIdx.y, dv0 = blockIdx.x * DVT;
+  const int chunks = (seq + C - 1) / C;
+  const long long row0 = (long long)bh * seq;
+  const T* qh = q + row0 * Dk;
+  const T* kh = k + row0 * Dk;
+  const T* vh = v + row0 * Dv;
+  const float* ldh = log_decay + row0;
+  T* oh = out + row0 * Dv;
+
+  for (int i = tid; i < Dk * DVT; i += THREADS) S[i] = 0.0f;
+
+  for (int c = 0; c < chunks; ++c) {
+    const int t0 = c * C;
+    __syncthreads();                   // the last chunk is done with all
+    const float* Ac = A + ((long long)bh * chunks + c) * C * C;
+    for (int i = tid; i < C * C; i += THREADS)
+      As[(i / C) * LDA + i % C] = Ac[i];
+    for (int i = tid; i < C * DVT; i += THREADS) {
+      const int r = i / DVT, col = dv0 + i % DVT, t = t0 + r;
+      vs[i] = (t < seq && col < Dv) ? to_f(vh[(long long)t * Dv + col])
+                                    : 0.0f;
+    }
+    if (tid < 32) scan_chunk(ldh, t0, seq, cum, ecum, w, etotal);
+    __syncthreads();
+
+    float o[2][4], inter[2][4];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[r][e] = inter[r][e] = 0.0f;
+    // intra-chunk: A V (A is 0 above the diagonal)
+    for (int j = 0; j < C; ++j) {
+      const float a0 = As[tr * LDA + j], a1 = As[(tr + 32) * LDA + j];
+      const float4 b = *reinterpret_cast<const float4*>(vs + j * DVT + 4 * tc);
+      o[0][0] = fmaf(a0, b.x, o[0][0]);
+      o[0][1] = fmaf(a0, b.y, o[0][1]);
+      o[0][2] = fmaf(a0, b.z, o[0][2]);
+      o[0][3] = fmaf(a0, b.w, o[0][3]);
+      o[1][0] = fmaf(a1, b.x, o[1][0]);
+      o[1][1] = fmaf(a1, b.y, o[1][1]);
+      o[1][2] = fmaf(a1, b.z, o[1][2]);
+      o[1][3] = fmaf(a1, b.w, o[1][3]);
+    }
+    const float decay = *etotal;
+    for (int d0 = 0; d0 < Dk; d0 += DKT) {
+      for (int i = tid; i < C * DKT; i += THREADS) {
+        const int r = i / DKT, d = i % DKT, t = t0 + r, dd = d0 + d;
+        const bool in = t < seq && dd < Dk;
+        const long long g = (long long)t * Dk + dd;
+        qs[r * LDT + d] = in ? to_f(qh[g]) : 0.0f;
+        kw[r * LDT + d] = in ? to_f(kh[g]) * w[r] : 0.0f;
+      }
+      __syncthreads();                 // the tiles are whole
+      // the carried state's part of the outputs, from this tile's rows
+      const int dmax = min(DKT, Dk - d0);
+      for (int d = 0; d < dmax; ++d) {
+        const float a0 = qs[tr * LDT + d], a1 = qs[(tr + 32) * LDT + d];
+        const float4 b =
+            *reinterpret_cast<const float4*>(S + (d0 + d) * DVT + 4 * tc);
+        inter[0][0] = fmaf(a0, b.x, inter[0][0]);
+        inter[0][1] = fmaf(a0, b.y, inter[0][1]);
+        inter[0][2] = fmaf(a0, b.z, inter[0][2]);
+        inter[0][3] = fmaf(a0, b.w, inter[0][3]);
+        inter[1][0] = fmaf(a1, b.x, inter[1][0]);
+        inter[1][1] = fmaf(a1, b.y, inter[1][1]);
+        inter[1][2] = fmaf(a1, b.z, inter[1][2]);
+        inter[1][3] = fmaf(a1, b.w, inter[1][3]);
+      }
+      // this tile's rows of (K o w)^T V
+      float u[2][4];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) u[r][e] = 0.0f;
+      for (int j = 0; j < C; ++j) {
+        const float a0 = kw[j * LDT + tr], a1 = kw[j * LDT + tr + 32];
+        const float4 b = *reinterpret_cast<const float4*>(vs + j * DVT + 4 * tc);
+        u[0][0] = fmaf(a0, b.x, u[0][0]);
+        u[0][1] = fmaf(a0, b.y, u[0][1]);
+        u[0][2] = fmaf(a0, b.z, u[0][2]);
+        u[0][3] = fmaf(a0, b.w, u[0][3]);
+        u[1][0] = fmaf(a1, b.x, u[1][0]);
+        u[1][1] = fmaf(a1, b.y, u[1][1]);
+        u[1][2] = fmaf(a1, b.z, u[1][2]);
+        u[1][3] = fmaf(a1, b.w, u[1][3]);
+      }
+      __syncthreads();                 // every read of S's tile rows is done
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int d = d0 + tr + 32 * r;
+        if (d >= Dk) continue;
+        float4* sp = reinterpret_cast<float4*>(S + d * DVT + 4 * tc);
+        float4 x = *sp;
+        x.x = fmaf(decay, x.x, u[r][0]);
+        x.y = fmaf(decay, x.y, u[r][1]);
+        x.z = fmaf(decay, x.z, u[r][2]);
+        x.w = fmaf(decay, x.w, u[r][3]);
+        *sp = x;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = tr + 32 * r, t = t0 + i;
+      if (t >= seq) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = dv0 + 4 * tc + e;
+        if (col < Dv)
+          store(oh + (long long)t * Dv + col, o[r][e] + ecum[i] * inter[r][e]);
+      }
+    }
+  }
+}
+
+constexpr size_t state_bytes(int Dk) {
+  return sizeof(float) * ((size_t)Dk * DVT + C * DVT + C * (C + 1) +
+                          2 * C * (DKT + 1) + 3 * C + 1);
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const void* ld,
+           void* scores, void* out, int BH, int seq, int Dk, int Dv,
+           cudaStream_t stream) {
+  // once, for the widest key dim
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      state_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)state_bytes(DKW));
+  if (attr != cudaSuccess) return (int)attr;
+  const int chunks = (seq + C - 1) / C;
+  scores_kernel<T><<<dim3(chunks, BH), THREADS, 0, stream>>>(
+      (const T*)q, (const T*)k, (const float*)ld, (float*)scores, seq, Dk);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  state_kernel<T><<<dim3((Dv + DVT - 1) / DVT, BH), THREADS,
+                    state_bytes(Dk), stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const float*)ld,
+      (const float*)scores, (T*)out, seq, Dk, Dv);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wide
+
 }  // namespace
 
 extern "C" int linear_attention_f32(const void* q, const void* k,
@@ -631,4 +898,20 @@ extern "C" int linear_attention_bf16(const void* q, const void* k,
                                      int Dv, int dv_tile, void* stream) {
   return tensor_core::dispatch(q, k, v, log_decay, out, BH, seq, Dk, Dv,
                                dv_tile, stream);
+}
+
+// Dk in (128, 1024], f32 or bf16 (`bf16` != 0): the two-pass path, with
+// `scores` a (BH, ceil(seq / 64), 64, 64) f32 scratch.
+extern "C" int linear_attention_wide(const void* q, const void* k,
+                                     const void* v, const void* log_decay,
+                                     void* scores, void* out, int BH,
+                                     int seq, int Dk, int Dv, int bf16,
+                                     void* stream) {
+  if (BH <= 0 || seq <= 0 || Dv <= 0) return 0;
+  if (Dk <= DKMAX || Dk > wide::DKW) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return bf16 ? wide::launch<__nv_bfloat16>(q, k, v, log_decay, scores, out,
+                                            BH, seq, Dk, Dv, s)
+              : wide::launch<float>(q, k, v, log_decay, scores, out, BH, seq,
+                                    Dk, Dv, s);
 }

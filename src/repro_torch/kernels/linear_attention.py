@@ -21,6 +21,15 @@ cores: the carried state stays f32, and every f32 operand of a product
 as a bf16 hi + lo pair (about 2^-16 relative); with the output rounded
 to bf16 the two agree within rtol = atol = 2e-2 and 1e-2 relative L2 per
 row.
+
+Key dims above 128 (xlstm-1.3b's mLSTM: Dk 1024, Dv 1025) take a third
+path, for either dtype: a first kernel forms each chunk's decayed scores
+A once (into a (BH, chunks, 64, 64) f32 scratch), a second walks the
+chunks per (head, 32-column Dv tile) with the (Dk, 32) f32 state in
+shared memory, all in f32 on the CUDA cores. Against the plain version
+it differs by the order of f32 sums only: within rtol = atol = 3e-4 for
+f32 inputs, and for bf16 inputs within the output's bf16 rounding (2e-2,
+1e-2 relative L2 per row).
 """
 from __future__ import annotations
 
@@ -28,7 +37,9 @@ import torch
 
 from . import _lib
 
-MAX_KEY_DIM = 128      # the kernels keep the (Dk, Dv tile) state on chip
+MAX_KEY_DIM = 128      # the one-pass kernels keep the state in registers
+WIDE_KEY_DIM = 1024    # the two-pass kernel keeps (Dk, 32) f32 of it on chip
+CHUNK = 64             # steps per chunk of every path
 
 
 def dv_tile_for(Dk: int, Dv: int) -> int:
@@ -97,7 +108,7 @@ def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Raises:
         ValueError: shape, dtype, device or contiguity the kernel does not
-            take (on CUDA also Dk > 128).
+            take (on CUDA also Dk > 1024).
         RuntimeError: the launch was refused.
     """
     _check(q, k, v, log_decay)
@@ -107,16 +118,22 @@ def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"linear_attention: expects float32 or bfloat16, "
                          f"got {q.dtype}")
     BH, T, Dk = q.shape
-    if Dk > MAX_KEY_DIM:
-        raise ValueError(f"linear_attention: key dim {Dk} > {MAX_KEY_DIM}")
+    if Dk > WIDE_KEY_DIM:
+        raise ValueError(f"linear_attention: key dim {Dk} > {WIDE_KEY_DIM}")
     out = torch.empty(BH, T, v.shape[-1], dtype=q.dtype, device=q.device)
     _lib.require_cuda("linear_attention", (q, q.dtype), (k, q.dtype),
                       (v, q.dtype), (log_decay, torch.float32),
                       (out, q.dtype))
     lib = _lib.library()
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), log_decay.data_ptr(),
-            out.data_ptr(), BH, T, Dk, v.shape[-1])
-    if q.dtype == torch.float32:
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), log_decay.data_ptr())
+    args = (*ptrs, out.data_ptr(), BH, T, Dk, v.shape[-1])
+    if Dk > MAX_KEY_DIM:
+        scores = torch.empty(BH, -(-T // CHUNK), CHUNK, CHUNK,
+                             dtype=torch.float32, device=q.device)
+        err = lib.linear_attention_wide(
+            *ptrs, scores.data_ptr(), out.data_ptr(), BH, T, Dk, v.shape[-1],
+            int(q.dtype == torch.bfloat16), _lib.stream_of(q))
+    elif q.dtype == torch.float32:
         err = lib.linear_attention_f32(*args, _lib.stream_of(q))
     else:
         err = lib.linear_attention_bf16(

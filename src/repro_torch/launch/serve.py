@@ -3,10 +3,12 @@ server over the persistent CoexecEngine and its discrete-event twins.
 
 Default (LM) mode: requests are random prompts batched up to ``--batch``,
 stepped through ``Model.decode_step`` and decoded greedily over the
-unpadded vocabulary. The CLI serves the reduced config (as the reference
-does) on ``--device`` (``cuda:0`` unless the caller asks for ``cpu``).
+unpadded vocabulary; an enc-dec model (whisper) first runs its encoder
+over zero frames through ``Model.prefill``. The CLI serves the reduced
+config (as the reference does) on ``--device`` (``cuda:0`` unless the
+caller asks for ``cpu``).
 
-    python -m repro_torch.launch.serve --arch zamba2-7b
+    python -m repro_torch.launch.serve --arch qwen3-0.6b --device cpu
 
 Co-execution mode: each "request" is one data-parallel kernel launch
 served through ``CoexecutorRuntime.launch_async`` on a long-lived engine
@@ -52,6 +54,8 @@ def serve_lm(model: Model, params, *, requests: int, batch: int,
 
     Args:
         model: the built model; ``params`` its parameters on ``device``.
+            A model with ``prefill`` (enc-dec) runs it on zero frames
+            before each batch's prompt, as the reference's CLI does.
         requests: how many requests to serve.
         batch: requests per batch (the last batch is padded to it).
         prompt_len: tokens per prompt (P).
@@ -75,6 +79,11 @@ def serve_lm(model: Model, params, *, requests: int, batch: int,
         prompts = torch.randint(0, cfg.vocab_size, (B, P),
                                 generator=gen).to(device)
         cache = model.init_cache(B, P + G, device=device)
+        if model.prefill is not None:
+            frames = torch.zeros(B, cfg.encoder_seq, cfg.d_model,
+                                 dtype=torch.bfloat16, device=device)
+            cache = model.prefill(params, {"tokens": prompts,
+                                           "frames": frames}, cache)
         for t in range(P):
             logits, cache = model.decode_step(params, prompts[:, t:t + 1],
                                               cache)
@@ -720,7 +729,7 @@ def build_parser() -> argparse.ArgumentParser:
     from ..api import add_spec_args
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="zamba2-7b")
+    ap.add_argument("--arch", default="qwen3-0.6b")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-tokens", type=int, default=16)

@@ -1,4 +1,5 @@
-"""The LM stack on PyTorch: layers, attention, Mamba-2, the model builder."""
+"""The LM stack on PyTorch: layers, attention, MoE, Mamba-2, xLSTM and the
+model builder."""
 from .convert import params_from_numpy
 from .model import Model, build_model, count_params, param_bytes
 

@@ -1,4 +1,4 @@
-"""Base layers: norms, dense layers, the gated MLP, embeddings, RoPE.
+"""Base layers: norms, dense layers, the MLPs, embeddings, positions.
 
 Plain functions on tensors; parameters are dicts of tensors with the
 reference's names, shapes and init scales (``init_*``), so a parameter
@@ -7,7 +7,8 @@ tree from the reference converts one to one
 reference, because it is part of the function: :func:`embed` gathers from
 a bf16 copy of the table, so the residual stream is bf16; :func:`dense`
 casts its kernel to the activations' dtype; :func:`rmsnorm` computes in
-f32 and returns the input's dtype; :func:`unembed` is f32.
+f32 and returns the input's dtype (so does :func:`layernorm`);
+:func:`unembed` is f32.
 """
 from __future__ import annotations
 
@@ -44,6 +45,19 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def init_layernorm(d: int, device: torch.device) -> Params:
+    return {"scale": torch.ones(d, device=device),
+            "bias": torch.zeros(d, device=device)}
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Activations
 # ---------------------------------------------------------------------------
@@ -53,7 +67,19 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     x's dtype, as the reference computes it: in bf16 this rounds after
     every operation, where ``F.silu`` rounds once (the two differ in
     about a third of bf16 values)."""
-    return x * (1 / (1 + torch.exp(-x)))
+    return x * sigmoid(x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh form of GELU, each step in x's dtype, as the reference's
+    ``jax.nn.gelu`` (``approximate=True``) writes it."""
+    c = (2 / torch.pi) ** 0.5
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * (x * x * x)))))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """1 / (1 + exp(-x)) in x's dtype (see :func:`silu`)."""
+    return 1 / (1 + torch.exp(-x))
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -104,6 +130,20 @@ def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     return dense(p["wo"], h)
 
 
+def init_gelu_mlp(generator: torch.Generator, d: int, d_ff: int, *,
+                  device: torch.device,
+                  dtype: torch.dtype = torch.float32) -> Params:
+    """Plain GELU MLP (whisper-style), with biases."""
+    return {"wi": init_dense(generator, d, d_ff, device=device, bias=True,
+                             dtype=dtype),
+            "wo": init_dense(generator, d_ff, d, device=device, bias=True,
+                             scale=d_ff ** -0.5, dtype=dtype)}
+
+
+def gelu_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    return dense(p["wo"], gelu(dense(p["wi"], x)))
+
+
 # ---------------------------------------------------------------------------
 # Embeddings & positions
 # ---------------------------------------------------------------------------
@@ -129,6 +169,19 @@ def unembed(p: Params, x: torch.Tensor,
     if pad_to is not None and pad_to > table.shape[0]:
         table = F.pad(table, (0, 0, 0, pad_to - table.shape[0]))
     return torch.matmul(x.float(), table.t())
+
+
+def sinusoidal_positions(seq: int, d: int, dtype: torch.dtype = torch.float32,
+                         *, device: torch.device | str = "cpu",
+                         offset: int = 0) -> torch.Tensor:
+    """Rows ``offset .. offset + seq - 1`` of the reference's sinusoidal
+    table: [sin | cos] of pos / 10000^(2i/d), (seq, d) in ``dtype`` (each
+    row is computed as the whole table computes it)."""
+    pos = torch.arange(offset, offset + seq, dtype=torch.float32,
+                       device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / torch.pow(10000.0, 2.0 * dim / d)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1).to(dtype)
 
 
 def rope_frequencies(head_dim: int, theta: float = 10000.0) -> torch.Tensor:

@@ -1,19 +1,22 @@
-"""Model builder: one interface over the assigned architectures.
+"""Model builder: every assigned architecture behind one interface.
 
     model = build_model(cfg)
     params = model.init(generator, device)
     logits, aux = model.forward(params, batch)        # full-sequence logits
     logits = model.prefill_logits(params, batch)      # last-pos logits
     cache = model.init_cache(batch, max_len)
+    cache = model.prefill(params, batch, cache)       # enc-dec only
     logits, cache = model.decode_step(params, tokens, cache)
 
-Only the hybrid family (zamba2: Mamba-2 blocks and one shared attention
-block) builds in the port so far; the others raise
-``NotImplementedError`` naming the ROADMAP item that ports them. The
+Families: dense (minicpm/qwen3/qwen1.5/h2o), moe (qwen3-moe/phi3.5-moe),
+vlm (internvl2), encdec (whisper), ssm (xlstm), hybrid (zamba2). The
 reference scans its layer stacks (``xscan``); here the stacks are Python
 lists of per-layer parameter dicts and a plain loop walks them. Every
 entry point runs on the parameters' device: ``cuda:0`` unless the caller
-initialises on the CPU.
+initialises on the CPU. ``init`` takes ``dense_dtype`` to store the dense
+kernels rounded to bf16 for serving (the residual stream is bf16, so
+``dense`` casts them to bf16 anyway); norms, biases, routers, the
+recurrent sLSTM matrices and an untied ``lm_head`` stay f32.
 """
 from __future__ import annotations
 
@@ -23,10 +26,15 @@ from typing import Any, Callable, Optional
 import torch
 
 from ..configs.base import ModelConfig
+from ..kernels import flash_attention_plain
 from . import attention as attn
+from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .layers import (embed, init_embedding, init_mlp, init_rmsnorm, mlp,
-                     rmsnorm, unembed)
+from . import xlstm as xlstm_mod
+from .layers import (dense, embed, gelu_mlp, init_dense, init_embedding,
+                     init_gelu_mlp, init_layernorm, init_mlp, init_rmsnorm,
+                     layernorm, mlp, rmsnorm, rope_frequencies,
+                     sinusoidal_positions, unembed)
 
 Params = Any
 
@@ -38,6 +46,7 @@ class Model:
     forward: Callable[..., tuple[torch.Tensor, torch.Tensor]]
     init_cache: Callable[..., Params]
     decode_step: Callable[..., tuple[torch.Tensor, Params]]
+    prefill: Optional[Callable[..., Params]] = None
 
     def prefill_logits(self, params: Params, batch: dict) -> torch.Tensor:
         """Serving prefill: logits at the final position only."""
@@ -78,6 +87,367 @@ def _mask_pad_cols(logits: torch.Tensor, valid: int) -> torch.Tensor:
         return logits
     col = torch.arange(logits.shape[-1], device=logits.device)
     return logits.masked_fill(col >= valid, float("-inf"))
+
+
+def _kv_len(cfg: ModelConfig, max_len: int) -> int:
+    """Ring slots of a KV cache: the window bounds it."""
+    return min(max_len, cfg.window) if cfg.window else max_len
+
+
+# ===========================================================================
+# dense / moe / vlm decoder-only LM
+# ===========================================================================
+
+def _build_decoder_lm(cfg: ModelConfig) -> Model:
+    hd = cfg.resolved_head_dim
+    heads = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+                 head_dim=hd, window=cfg.window)
+    moe = cfg.family == "moe"
+
+    def rope(device):
+        return (rope_frequencies(hd, cfg.rope_theta).to(device)
+                if cfg.rope_theta else None)
+
+    def init(generator: torch.Generator,
+             device: torch.device | str = "cuda:0", *,
+             dense_dtype: torch.dtype = torch.float32) -> Params:
+        """Random parameters with the reference's shapes and scales."""
+        device = torch.device(device)
+
+        def block():
+            p = {"ln1": init_rmsnorm(cfg.d_model, device),
+                 "attn": attn.init_attention(
+                     generator, cfg.d_model, cfg.num_heads,
+                     cfg.num_kv_heads, hd, device=device,
+                     qk_norm=cfg.qk_norm, qkv_bias=cfg.qkv_bias,
+                     dtype=dense_dtype),
+                 "ln2": init_rmsnorm(cfg.d_model, device)}
+            if moe:
+                p["moe"] = moe_mod.init_moe(
+                    generator, cfg.d_model, cfg.moe_d_ff, cfg.num_experts,
+                    device=device, dtype=dense_dtype)
+            else:
+                p["mlp"] = init_mlp(generator, cfg.d_model, cfg.d_ff,
+                                    device=device, dtype=dense_dtype)
+            return p
+
+        p = {"embed": init_embedding(generator, cfg.vocab_size, cfg.d_model,
+                                     device=device),
+             "layers": [block() for _ in range(cfg.num_layers)],
+             "final_norm": init_rmsnorm(cfg.d_model, device)}
+        if not cfg.tie_embeddings:
+            p["lm_head"] = init_dense(generator, cfg.d_model, cfg.vocab_size,
+                                      device=device)
+        if cfg.family == "vlm":
+            # stub projector for the (frozen, external) InternViT features
+            p["vision_proj"] = init_dense(generator, cfg.d_model,
+                                          cfg.d_model, device=device,
+                                          dtype=dense_dtype)
+        return p
+
+    def logits_of(params, x):
+        if cfg.tie_embeddings:
+            return unembed(params["embed"], x, pad_to=_pad_vocab(cfg))
+        return dense(params["lm_head"], x.float())
+
+    def embed_inputs(params, batch):
+        x = embed(params["embed"], batch["tokens"])
+        if cfg.family == "vlm" and "vision_embeds" in batch:
+            ve = dense(params["vision_proj"],
+                       batch["vision_embeds"].to(x.dtype))
+            x = torch.cat([ve, x[:, ve.shape[1]:, :]], dim=1)
+        return x
+
+    def forward(params, batch):
+        """tokens (B, T) (and ``vision_embeds`` (B, Nv, d) for vlm) ->
+        f32 logits (B, T, vocab, padded when tied) and the mean MoE aux
+        loss over the layers (0 for dense)."""
+        x = embed_inputs(params, batch)
+        freqs = rope(x.device)
+        aux = torch.zeros((), device=x.device)
+        for p in params["layers"]:
+            x = x + attn.attention_train(
+                p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
+                rope_freqs=freqs, impl=cfg.attn_impl, **heads)
+            hn = rmsnorm(p["ln2"], x, cfg.norm_eps)
+            if moe:
+                h, a = moe_mod.moe_layer(
+                    p["moe"], hn, num_experts=cfg.num_experts,
+                    top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
+                aux = aux + a
+            else:
+                h = mlp(p["mlp"], hn)
+            x = x + h
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        return logits_of(params, x), aux / cfg.num_layers
+
+    def init_cache(batch: int, max_len: int, *,
+                   device: torch.device | str = "cuda:0") -> Params:
+        return [attn.init_kv_cache(batch, cfg.num_kv_heads,
+                                   _kv_len(cfg, max_len), hd,
+                                   device=torch.device(device))
+                for _ in range(cfg.num_layers)]
+
+    def decode_step(params, tokens, cache):
+        """tokens (B, 1) -> logits (B, vocab), the padded columns -inf,
+        and the advanced cache (MoE at capacity factor 2.0)."""
+        x = embed(params["embed"], tokens)
+        freqs = rope(x.device)
+        new = []
+        for p, c in zip(params["layers"], cache):
+            h, c = attn.attention_decode(
+                p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps), c,
+                rope_freqs=freqs, **heads)
+            x = x + h
+            hn = rmsnorm(p["ln2"], x, cfg.norm_eps)
+            if moe:
+                h, _ = moe_mod.moe_layer(p["moe"], hn,
+                                         num_experts=cfg.num_experts,
+                                         top_k=cfg.top_k,
+                                         capacity_factor=2.0)
+            else:
+                h = mlp(p["mlp"], hn)
+            x = x + h
+            new.append(c)
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        logits = _mask_pad_cols(logits_of(params, x), cfg.vocab_size)
+        return logits[:, 0, :], new
+
+    return Model(cfg=cfg, init=init, forward=forward,
+                 init_cache=init_cache, decode_step=decode_step)
+
+
+# ===========================================================================
+# enc-dec (whisper)
+# ===========================================================================
+
+def _build_encdec(cfg: ModelConfig) -> Model:
+    hd = cfg.resolved_head_dim
+    heads = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+                 head_dim=hd)
+
+    def init(generator: torch.Generator,
+             device: torch.device | str = "cuda:0", *,
+             dense_dtype: torch.dtype = torch.float32) -> Params:
+        """Random parameters with the reference's shapes and scales."""
+        device = torch.device(device)
+
+        def attention():
+            return attn.init_attention(generator, cfg.d_model, cfg.num_heads,
+                                       cfg.num_kv_heads, hd, device=device,
+                                       dtype=dense_dtype)
+
+        def gmlp():
+            return init_gelu_mlp(generator, cfg.d_model, cfg.d_ff,
+                                 device=device, dtype=dense_dtype)
+
+        def ln():
+            return init_layernorm(cfg.d_model, device)
+
+        return {
+            "embed": init_embedding(generator, cfg.vocab_size, cfg.d_model,
+                                    device=device),
+            "encoder_layers": [{"ln1": ln(), "attn": attention(),
+                                "ln2": ln(), "mlp": gmlp()}
+                               for _ in range(cfg.encoder_layers)],
+            "enc_norm": ln(),
+            "layers": [{"ln1": ln(), "self_attn": attention(), "ln_x": ln(),
+                        "cross_attn": attention(), "ln2": ln(),
+                        "mlp": gmlp()} for _ in range(cfg.num_layers)],
+            "final_norm": ln(),
+        }
+
+    def encode(params, frames):
+        """frames: (B, S_enc, d) stub embeddings from the conv frontend."""
+        S = frames.shape[1]
+        x = frames + sinusoidal_positions(S, cfg.d_model, frames.dtype,
+                                          device=frames.device)[None]
+        for p in params["encoder_layers"]:
+            x = x + attn.attention_train(
+                p["attn"], layernorm(p["ln1"], x), rope_freqs=None,
+                causal=False, impl=cfg.attn_impl, **heads)
+            x = x + gelu_mlp(p["mlp"], layernorm(p["ln2"], x))
+        return layernorm(params["enc_norm"], x)
+
+    def encoder_kv(p, enc):
+        B, S, _ = enc.shape
+        k = dense(p["wk"], enc).reshape(B, S, cfg.num_kv_heads, hd)
+        v = dense(p["wv"], enc).reshape(B, S, cfg.num_kv_heads, hd)
+        return k.transpose(1, 2), v.transpose(1, 2)
+
+    def cross_attend(p, x, enc_k, enc_v):
+        """Cross-attention against encoder K/V through the plain
+        attention, as the reference's ``kref.attention``."""
+        B, T, _ = x.shape
+        q = dense(p["wq"], x).reshape(B, T, cfg.num_heads, hd).transpose(1, 2)
+        out = flash_attention_plain(q, enc_k, enc_v, causal=False)
+        return dense(p["wo"], out.transpose(1, 2).reshape(
+            B, T, cfg.num_heads * hd))
+
+    def forward(params, batch):
+        """tokens (B, T) and frames (B, S_enc, d) -> f32 logits (B, T,
+        padded vocab) and a zero aux loss."""
+        enc = encode(params, batch["frames"])
+        tokens = batch["tokens"]
+        x = embed(params["embed"], tokens)
+        x = x + sinusoidal_positions(tokens.shape[1], cfg.d_model, x.dtype,
+                                     device=x.device)[None]
+        for p in params["layers"]:
+            x = x + attn.attention_train(
+                p["self_attn"], layernorm(p["ln1"], x), rope_freqs=None,
+                impl=cfg.attn_impl, **heads)
+            ek, ev = encoder_kv(p["cross_attn"], enc)
+            x = x + cross_attend(p["cross_attn"], layernorm(p["ln_x"], x),
+                                 ek, ev)
+            x = x + gelu_mlp(p["mlp"], layernorm(p["ln2"], x))
+        x = layernorm(params["final_norm"], x)
+        logits = unembed(params["embed"], x, pad_to=_pad_vocab(cfg))
+        return logits, torch.zeros((), device=logits.device)
+
+    def init_cache(batch: int, max_len: int, *,
+                   device: torch.device | str = "cuda:0") -> Params:
+        device = torch.device(device)
+        shape = (batch, cfg.num_kv_heads, cfg.encoder_seq, hd)
+        return {"self": [attn.init_kv_cache(batch, cfg.num_kv_heads,
+                                            max_len, hd, device=device)
+                         for _ in range(cfg.num_layers)],
+                "cross": [{"k": torch.zeros(shape, dtype=torch.bfloat16,
+                                            device=device),
+                           "v": torch.zeros(shape, dtype=torch.bfloat16,
+                                            device=device)}
+                          for _ in range(cfg.num_layers)]}
+
+    def prefill(params, batch, cache):
+        """Run the encoder once and stash each layer's cross K/V (bf16)."""
+        enc = encode(params, batch["frames"])
+        cross = []
+        for p in params["layers"]:
+            k, v = encoder_kv(p["cross_attn"], enc)
+            cross.append({"k": k.to(torch.bfloat16).contiguous(),
+                          "v": v.to(torch.bfloat16).contiguous()})
+        return {"self": cache["self"], "cross": cross}
+
+    def decode_step(params, tokens, cache):
+        """tokens (B, 1) -> logits (B, padded vocab), the padded columns
+        -inf, and the advanced cache."""
+        pos = cache["self"][0]["len"]
+        x = embed(params["embed"], tokens)
+        x = x + sinusoidal_positions(1, cfg.d_model, x.dtype,
+                                     device=x.device, offset=pos)[None]
+        new = []
+        for p, c, kv in zip(params["layers"], cache["self"],
+                            cache["cross"]):
+            h, c = attn.attention_decode(
+                p["self_attn"], layernorm(p["ln1"], x), c, rope_freqs=None,
+                **heads)
+            x = x + h
+            x = x + cross_attend(p["cross_attn"], layernorm(p["ln_x"], x),
+                                 kv["k"], kv["v"])
+            x = x + gelu_mlp(p["mlp"], layernorm(p["ln2"], x))
+            new.append(c)
+        x = layernorm(params["final_norm"], x)
+        logits = _mask_pad_cols(
+            unembed(params["embed"], x, pad_to=_pad_vocab(cfg)),
+            cfg.vocab_size)
+        return logits[:, 0, :], {"self": new, "cross": cache["cross"]}
+
+    return Model(cfg=cfg, init=init, forward=forward,
+                 init_cache=init_cache, decode_step=decode_step,
+                 prefill=prefill)
+
+
+# ===========================================================================
+# xLSTM (ssm family)
+# ===========================================================================
+
+def _build_xlstm(cfg: ModelConfig) -> Model:
+    per_super = cfg.slstm_every                     # 8: 7 mLSTM + 1 sLSTM
+    n_super = cfg.num_layers // per_super
+    n_m = per_super - 1
+    H = cfg.num_heads
+
+    def init(generator: torch.Generator,
+             device: torch.device | str = "cuda:0", *,
+             dense_dtype: torch.dtype = torch.float32) -> Params:
+        """Random parameters with the reference's shapes and scales."""
+        device = torch.device(device)
+
+        def superblock():
+            return {
+                "mlstm": [{"ln": init_rmsnorm(cfg.d_model, device),
+                           "mlstm": xlstm_mod.init_mlstm(
+                               generator, cfg.d_model, H, device=device,
+                               dtype=dense_dtype)} for _ in range(n_m)],
+                "slstm": {"ln": init_rmsnorm(cfg.d_model, device),
+                          "slstm": xlstm_mod.init_slstm(
+                              generator, cfg.d_model, H, device=device,
+                              dtype=dense_dtype)},
+            }
+
+        return {"embed": init_embedding(generator, cfg.vocab_size,
+                                        cfg.d_model, device=device),
+                "superblocks": [superblock() for _ in range(n_super)],
+                "final_norm": init_rmsnorm(cfg.d_model, device)}
+
+    def forward(params, batch):
+        """tokens (B, T) -> f32 logits (B, T, padded vocab), zero aux."""
+        x = embed(params["embed"], batch["tokens"])
+        for sb in params["superblocks"]:
+            for p in sb["mlstm"]:
+                x = x + xlstm_mod.mlstm_train(
+                    p["mlstm"], rmsnorm(p["ln"], x, cfg.norm_eps),
+                    num_heads=H, impl=cfg.mixer_impl)
+            s = sb["slstm"]
+            x = x + xlstm_mod.slstm_train(
+                s["slstm"], rmsnorm(s["ln"], x, cfg.norm_eps), num_heads=H)
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        logits = unembed(params["embed"], x, pad_to=_pad_vocab(cfg))
+        return logits, torch.zeros((), device=logits.device)
+
+    def init_cache(batch: int, max_len: int, *,
+                   device: torch.device | str = "cuda:0") -> Params:
+        del max_len   # recurrent state is O(1) in sequence length
+        device = torch.device(device)
+        return {
+            "mlstm": [[xlstm_mod.init_mlstm_cache(batch, cfg.d_model, H,
+                                                  device=device)
+                       for _ in range(n_m)] for _ in range(n_super)],
+            "slstm": [xlstm_mod.init_slstm_state(batch, cfg.d_model, H,
+                                                 device=device)
+                      for _ in range(n_super)],
+            "len": 0,
+        }
+
+    def decode_step(params, tokens, cache):
+        """tokens (B, 1) -> logits (B, padded vocab), the padded columns
+        -inf, and the advanced cache."""
+        x = embed(params["embed"], tokens)
+        ms, ss = [], []
+        for sb, mc, sc in zip(params["superblocks"], cache["mlstm"],
+                              cache["slstm"]):
+            new = []
+            for p, c in zip(sb["mlstm"], mc):
+                h, c = xlstm_mod.mlstm_decode(
+                    p["mlstm"], rmsnorm(p["ln"], x, cfg.norm_eps), c,
+                    num_heads=H)
+                x = x + h
+                new.append(c)
+            s = sb["slstm"]
+            h, sc = xlstm_mod.slstm_decode(
+                s["slstm"], rmsnorm(s["ln"], x, cfg.norm_eps), sc,
+                num_heads=H)
+            x = x + h
+            ms.append(new)
+            ss.append(sc)
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        logits = _mask_pad_cols(
+            unembed(params["embed"], x, pad_to=_pad_vocab(cfg)),
+            cfg.vocab_size)
+        return logits[:, 0, :], {"mlstm": ms, "slstm": ss,
+                                 "len": cache["len"] + 1}
+
+    return Model(cfg=cfg, init=init, forward=forward,
+                 init_cache=init_cache, decode_step=decode_step)
 
 
 # ===========================================================================
@@ -157,7 +527,7 @@ def _build_zamba(cfg: ModelConfig) -> Model:
     def init_cache(batch: int, max_len: int, *,
                    device: torch.device | str = "cuda:0") -> Params:
         device = torch.device(device)
-        eff = min(max_len, cfg.window) if cfg.window else max_len
+        eff = _kv_len(cfg, max_len)
 
         def mamba_c():
             return ssm_mod.init_mamba2_cache(
@@ -219,20 +589,13 @@ def _build_zamba(cfg: ModelConfig) -> Model:
 # factory
 # ===========================================================================
 
-_WAITING = {
-    "dense": "the dense/MoE decoder builders (ROADMAP queue 1 item 8)",
-    "moe": "the dense/MoE decoder builders (ROADMAP queue 1 item 8)",
-    "vlm": "the dense/MoE decoder builders (ROADMAP queue 1 item 8)",
-    "ssm": "xLSTM (ROADMAP queue 1 item 8)",
-    "encdec": "the encoder-decoder builder (ROADMAP queue 1 item 8)",
-}
-
-
 def build_model(cfg: ModelConfig) -> Model:
+    if cfg.family in ("dense", "moe", "vlm"):
+        return _build_decoder_lm(cfg)
+    if cfg.family == "encdec":
+        return _build_encdec(cfg)
+    if cfg.family == "ssm":
+        return _build_xlstm(cfg)
     if cfg.family == "hybrid":
         return _build_zamba(cfg)
-    if cfg.family in _WAITING:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet; it "
-            f"waits for {_WAITING[cfg.family]}")
     raise ValueError(f"unknown family {cfg.family!r}")

@@ -8,6 +8,8 @@ versions bit for bit (the kernels use the plain versions' IEEE operations
 in the same order), and so does matmul (one fmaf per k in ascending k);
 rap within rtol 1e-5, atol 1e-6 * L (another summation order).
 """
+import dataclasses
+import functools
 import importlib
 
 import numpy as np
@@ -27,7 +29,11 @@ from repro_torch.kernels import (demo_spheres, flash_attention,
                                  rap_plain, raytrace, raytrace_plain,
                                  taylor_sin, taylor_sin_plain)
 
+from repro_torch.configs import get_config
+from repro_torch.models import build_model
+
 pytestmark = pytest.mark.cuda
+model_mod = importlib.import_module("repro_torch.models.model")
 matmul_mod = importlib.import_module("repro_torch.kernels.matmul")
 la_mod = importlib.import_module("repro_torch.kernels.linear_attention")
 
@@ -487,6 +493,13 @@ def _lm_tol(dtype, f32_tol):
     (2, 4, 4, 200, 128, True, 20, torch.bfloat16),
     (1, 4, 2, 130, 40, False, 20, torch.bfloat16),
     (1, 2, 2, 100, 33, True, None, torch.bfloat16),   # 2-byte copies
+    # h2o-danube3-4b's D 120 under a window, internvl2-1b's 14 q heads on
+    # 2 kv heads (G = 7, odd), minicpm-2b's D 64 MHA
+    (1, 4, 1, 700, 120, True, 256, torch.bfloat16),
+    (1, 4, 1, 300, 120, True, 100, torch.float32),
+    (2, 14, 2, 333, 64, True, None, torch.bfloat16),
+    (1, 14, 2, 200, 64, True, None, torch.float32),
+    (1, 6, 6, 257, 64, True, None, torch.bfloat16),
 ])
 def test_flash_attention_close_to_plain(dev, b, hq, hkv, t, d, causal,
                                         window, dtype):
@@ -534,6 +547,12 @@ def test_flash_attention_one_key_rows_copy_v(dev, dtype):
     (2, 200, 32, 100, torch.bfloat16, 64),
     (2, 200, 32, 100, torch.bfloat16, 32),
     (264, 128, 64, 64, torch.bfloat16, None),
+    # Dk > 128 takes the two-pass wide path in either dtype: xLSTM's Dk
+    # 1024 with Dv 1025 (the normaliser's column), ragged T, Dk 129
+    (2, 200, 1024, 1025, torch.float32, None),
+    (2, 200, 1024, 1025, torch.bfloat16, None),
+    (3, 130, 256, 257, torch.float32, None),
+    (2, 64, 129, 40, torch.bfloat16, None),
 ])
 def test_linear_attention_close_to_plain(dev, monkeypatch, bh, t, dk, dv,
                                          dtype, tile):
@@ -589,6 +608,9 @@ def test_lm_kernels_refuse_other_dtypes(dev):
     with pytest.raises(ValueError, match="float32"):
         linear_attention(a, a, a, torch.zeros(2, 8, dtype=torch.float64,
                                                device=dev))
+    w = torch.ones(2, 8, 1025, device=dev)
+    with pytest.raises(ValueError, match="key dim"):
+        linear_attention(w, w, w, torch.zeros(2, 8, device=dev))
 
 
 def test_lm_kernels_never_run_the_plain_version_on_cuda(dev, monkeypatch):
@@ -789,3 +811,65 @@ def test_served_requests_copy_to_the_card_while_others_are_mapped(dev):
     assert sorted(seen) == sorted(list(range(16)) * 2)
     assert [r["requests"] for r in rows] == [16, 16]
     assert not dataplane._mapped
+
+
+# -- every model family's reduced model on cuda:0 ----------------------------
+
+FAMILY_ARCHS = ["qwen3-0.6b", "qwen1.5-110b", "h2o-danube3-4b",
+                "minicpm-2b", "internvl2-1b", "phi3.5-moe-42b-a6.6b",
+                "qwen3-moe-235b-a22b", "whisper-medium", "xlstm-1.3b",
+                "xlstm-wide"]
+
+
+def _family_cfg(arch):
+    if arch == "xlstm-wide":      # 2 heads of 256: the wide kernel path
+        return dataclasses.replace(get_config("xlstm-1.3b").reduced(),
+                                   d_model=256, num_heads=2)
+    return get_config(arch).reduced()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_forward_through_the_kernels(dev, monkeypatch, arch, dtype):
+    """The reduced model's forward through the kernels against the plain
+    versions, on the same weights. f32 (the residual stream kept in f32):
+    the kernels differ by the order of f32 sums, within 2e-3 of logits of
+    size 4; bf16 (as served): bf16 rounding flips carried through the
+    layers, within the prefill's 0.1 relative L2 of ``chip_smoke.py``."""
+    monkeypatch.setattr(model_mod, "embed",
+                        functools.partial(model_mod.embed, dtype=dtype))
+    cfg = _family_cfg(arch)
+    kern = build_model(dataclasses.replace(cfg, attn_impl="flash",
+                                           mixer_impl="pallas"))
+    plain = build_model(dataclasses.replace(cfg, attn_impl="xla",
+                                            mixer_impl="ref"))
+    g = torch.Generator(device=dev).manual_seed(21)
+    params = kern.init(g, dev)
+    B, T = 2, 96
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, T),
+                                     generator=g, device=dev)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn(B, cfg.encoder_seq, cfg.d_model,
+                                      generator=g, device=dev).to(dtype)
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = torch.randn(B, cfg.vision_tokens,
+                                             cfg.d_model, generator=g,
+                                             device=dev)
+    flash_attention.launches = linear_attention.launches = 0
+    got, _ = kern.forward(params, batch)
+    launched = (flash_attention.launches, linear_attention.launches)
+    want, _ = plain.forward(params, batch)
+    assert (flash_attention.launches, linear_attention.launches) == launched
+    if cfg.family == "ssm":
+        assert launched == (0, (cfg.num_layers // cfg.slstm_every)
+                            * (cfg.slstm_every - 1))
+    else:
+        assert launched[0] == cfg.num_layers + cfg.encoder_layers
+        assert launched[1] == 0
+    V = cfg.vocab_size
+    got, want = got[..., :V].float(), want[..., :V].float()
+    assert bool(torch.isfinite(got).all())
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-3)
+    else:
+        assert float((got - want).norm() / want.norm()) <= 0.1

@@ -34,6 +34,7 @@ def test_scan_covers_the_package():
     for module in ("core/dataplane.py", "core/director.py",
                    "kernels/ops.py", "kernels/raytrace.py", "kernels/rap.py",
                    "configs/base.py", "models/model.py", "models/convert.py",
+                   "models/moe.py", "models/xlstm.py",
                    "kernels/flash_attention.py",
                    "kernels/linear_attention.py", "launch/serve.py",
                    "core/energy.py", "core/sim.py", "core/traffic.py",

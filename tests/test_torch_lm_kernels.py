@@ -184,7 +184,18 @@ def _linear_inputs(seed, t, dk, dv, bh=3):
 @pytest.mark.parametrize("dk,dv", [(16, 16), (32, 48)])
 @pytest.mark.parametrize("t", [64, 200, 256])
 def test_linear_attention_plain_matches_reference(t, dk, dv):
-    arrays = _linear_inputs(t + dk, t, dk, dv)
+    _linear_plain_matches_reference(t, dk, dv)
+
+
+@pytest.mark.parametrize("t,dk,dv", [(130, 256, 257), (64, 129, 40)])
+def test_linear_attention_plain_matches_reference_wide_keys(t, dk, dv):
+    """Key dims past 128 (the CUDA kernel's two-pass path) with a ragged
+    Dv, as xLSTM's normaliser column makes it (Dk 1024, Dv 1025 there)."""
+    _linear_plain_matches_reference(t, dk, dv, bh=2)
+
+
+def _linear_plain_matches_reference(t, dk, dv, bh=3):
+    arrays = _linear_inputs(t + dk, t, dk, dv, bh)
     before = linear_attention.launches
     got = _port(linear_attention, arrays)
     assert linear_attention.launches == before
@@ -393,3 +404,37 @@ def test_linear_attention_passes_its_dv_tile_to_the_bf16_entry(
     assert linear_attention.launches == before + 1
     assert len(calls) == 1 and calls[0][5:] == (bh, t, dk, dv, tile, 7)
     assert la.dv_tile_for(dk, dv) == tile
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dk,dv,t", [(1024, 1025, 512), (129, 40, 65),
+                                     (256, 257, 64)])
+def test_linear_attention_takes_the_wide_entry_past_128_keys(
+        monkeypatch, dk, dv, t, dtype):
+    """Key dims in (128, 1024] go to the two-pass C entry in either dtype
+    and count one launch; past 1024 the wrapper raises. Stubbed as
+    above."""
+    la = importlib.import_module("repro_torch.kernels.linear_attention")
+    calls = []
+
+    class Lib:
+        def linear_attention_wide(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(la._lib, "require_cuda", lambda *a: None)
+    monkeypatch.setattr(la._lib, "library", Lib)
+    monkeypatch.setattr(la._lib, "stream_of", lambda x: 7)
+    bh = 3
+    q = torch.empty(bh, t, dk, dtype=dtype, device="meta")
+    v = torch.empty(bh, t, dv, dtype=dtype, device="meta")
+    ld = torch.empty(bh, t, device="meta")
+    before = linear_attention.launches
+    out = la.linear_attention(q, q, v, ld)
+    assert tuple(out.shape) == (bh, t, dv) and out.dtype == dtype
+    assert linear_attention.launches == before + 1
+    assert len(calls) == 1
+    assert calls[0][6:] == (bh, t, dk, dv, int(dtype == torch.bfloat16), 7)
+    wide = torch.empty(bh, t, 1025, dtype=dtype, device="meta")
+    with pytest.raises(ValueError, match="key dim 1025 > 1024"):
+        la.linear_attention(wide, wide, v, ld)

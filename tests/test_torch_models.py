@@ -79,9 +79,18 @@ def test_shapes_are_the_reference_shapes():
 
 @pytest.mark.parametrize("arch", [a for a in REF_ARCH_IDS
                                   if a != "zamba2-7b"])
-def test_other_families_name_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_config(arch).reduced())
+def test_every_family_builds_with_the_reference_shapes(arch):
+    """init gives the reference's parameter tree, one dict per layer where
+    the reference stacks them, shape for shape."""
+    cfg = get_config(arch).reduced()
+    params = build_model(cfg).init(torch.Generator().manual_seed(0), CPU)
+    ref = ref_build(ref_config(arch).reduced()).init(jax.random.PRNGKey(0))
+    converted = params_from_numpy(cfg, jax.tree.map(np.asarray, ref),
+                                  device=CPU)
+    assert jax.tree.map(lambda a: tuple(a.shape), params) == \
+        jax.tree.map(lambda a: tuple(a.shape), converted)
+    assert count_params(params) == sum(
+        a.size for a in jax.tree_util.tree_leaves(ref))
 
 
 # -- layers -----------------------------------------------------------------

@@ -24,6 +24,7 @@
   CUDA is a usage error, never a quiet CPU-only run.
 """
 import argparse
+import dataclasses
 import json
 import sys
 
@@ -356,4 +357,33 @@ def test_lm_branch_takes_its_request_count_from_the_spec():
     assert isinstance(args, argparse.Namespace)
     spec = api.spec_from_args(args, base=serve.default_serve_spec())
     assert spec.workload.requests == 2
-    assert args.arch == "zamba2-7b" and args.device == "cuda:0"
+    assert args.arch == "qwen3-0.6b" and args.device == "cuda:0"
+    assert args.arch == ref_serve.build_parser().parse_args([]).arch
+
+
+def test_lm_branch_serves_an_encoder_decoder_through_prefill(monkeypatch,
+                                                             capsys):
+    """whisper-medium: each batch runs the encoder over zero frames through
+    ``Model.prefill`` before decoding, as the reference's CLI does."""
+    from repro_torch import models
+
+    calls = []
+    build = models.build_model
+
+    def spy(cfg):
+        model = build(cfg)
+        prefill = model.prefill
+
+        def counted(params, batch, cache):
+            calls.append(tuple(batch["frames"].shape))
+            assert not batch["frames"].any()
+            return prefill(params, batch, cache)
+
+        return dataclasses.replace(model, prefill=counted)
+
+    monkeypatch.setattr(serve, "build_model", spy)
+    serve.main(["--arch", "whisper-medium", "--device", "cpu", "--requests",
+                "3", "--batch", "2", "--prompt-len", "4", "--max-tokens",
+                "2"])
+    assert "3 requests, 18 tokens" in capsys.readouterr().out
+    assert calls == [(2, 16, 64)] * 2
