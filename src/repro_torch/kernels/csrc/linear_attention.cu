@@ -65,24 +65,49 @@
 // recomputed for each Dv tile. Rows of q and k have an odd stride, so the
 // rows a warp reads fall in distinct banks.
 //
-// Dk in (128, 1024], f32 or bf16 inputs (xlstm-1.3b's mLSTM: Dk 1024,
-// Dv 1025 with the normaliser's ones-column): `wide`, f32 on the CUDA
-// cores. A head's state is 1024 x 1025 f32 (4.2 MB), so no block can own
-// it, and a chunk of Q alone is 64 x 1024. Two kernels: the first, one
-// block per (chunk, head), streams Q and K through in 64-dim tiles and
-// writes the chunk's masked, decayed scores A once, to a (BH, chunks, 64,
-// 64) f32 scratch (2 MB at BH 16, T 512), so the 33 Dv tiles of a head do
-// not form them again; the second, one block of 256 threads per (32-column
-// Dv tile, head), holds its (Dk, 32) slice of S in shared memory (128 KB
-// at Dk 1024, 190 KB in all: one block an SM) and walks the chunks: A V,
-// then per 64-dim tile of Q and K, the tile's rows of S feed the outputs
-// (q . S) before the update (K o w)^T V rewrites them. Each thread owns 2
-// rows x 4 adjacent columns (16-byte reads of S and V). Bound: operations,
-// the chunk form's causal count at its best chunk length c (c = 23 here),
-// (c + 1)(Dk + Dv) + 4 Dk Dv + Dk Dv / c a step (35.2 GFLOP at BH 16,
-// T 512, fewer than the recurrence's 5 Dk Dv): 0.52 ms at the CUDA cores'
-// f32 peak, 0.036 ms at the tensor cores' bf16 peak, against 0.02 ms of
-// bf16 bytes; this path is a simple first design, far from either.
+// Dk in (128, 1024] (xlstm-1.3b's mLSTM: Dk 1024, Dv 1025 with the
+// normaliser's ones-column): `wide`. A head's state is 1024 x 1025 f32
+// (4.2 MB), so no block can own it, and a chunk of Q alone is 64 x 1024.
+// Bound: operations, the chunk form's causal count at its best chunk
+// length c (c = 23 here), (c + 1)(Dk + Dv) + 4 Dk Dv + Dk Dv / c a step
+// (35.2 GFLOP at BH 16, T 512): 0.036 ms at the tensor cores' bf16 peak
+// (0.52 ms at the CUDA cores' f32 peak), against 0.02 ms of bf16 bytes.
+// bf16 runs on the tensor cores, in two launches. Pass 1, one block of 4
+// warps per (chunk, head), forms the chunk's scores Q K^T by `mma.sync` (Q
+// and K streamed in 64-dim tiles through a 2-stage `cp.async` ring),
+// applies the causal decay and writes A once, to a (BH, chunks, 64, 64)
+// f32 scratch (2 MB at BH 16, T 512). Pass 2 splits the state by key dims
+// as well as by value columns, so that each block's share lives in
+// accumulator fragments: a block of 4 warps owns 128 key dims x 64 value
+// columns of one head (64 f32 registers a thread), transposed (S^T), since
+// the accumulators' layout is then the A operand of the next chunk's
+// (Q S)^T = S^T Q^T. The ceil(Dk / 128) key-slice blocks of a (value
+// tile, head) form a thread-block cluster (8 at Dk 1024); each computes
+// its slice's partial of (Q S)^T and its slice's update, and rank r sums
+// the partials of the 8-step output tiles r, r + 8, ... through
+// distributed shared memory in rank order (no atomics: a launch repeats
+// its bits), adds A V (A from the scratch as hi + lo) and writes bf16.
+// One cluster barrier a chunk, the partials double-buffered; K and V
+// arrive by 16-byte `cp.async` a chunk ahead, Q once the chunk's partial
+// is formed. Dv = 1025 is handled on purpose: V and out rows are 2050
+// bytes apart, so no 16-byte access lines up with a row; V is loaded 2
+// bytes an element into the free stage after the update, and the 17th
+// value tile holds the one column in its first warp (16 columns) while
+// the other three skip their products. The rounding contract is the
+// Dk <= 128 path's: q, k, v enter as they are; S, A and the
+// decay-weighted operand enter as hi + lo pairs, with w scaling V instead
+// of K ((K o w)^T V = K^T (w o V)), so each warp splits only its own 16
+// columns' weights; the carried state stays f32 on chip. At the xLSTM
+// shape: 2176 blocks of 128 threads, 106 KB and 244 registers, 2 an SM.
+// What holds it at about 17x its bound is not measured (no profiler of the SM's stalls on the card's machine): the
+// registers leave no room to prefetch more, and each chunk every rank of
+// a cluster waits for the slowest.
+// f32 stays on the CUDA cores, two kernels: pass 1 forms A as above with
+// f32 FMAs; pass 2, one block of 256 threads per (32-column Dv tile,
+// head), holds its (Dk, 32) slice of S in shared memory (190 KB at Dk
+// 1024: one block an SM) and walks the chunks: A V, then per 64-dim tile
+// of Q and K, the tile's rows of S feed the outputs (q . S) before the
+// update (K o w)^T V rewrites them.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -638,29 +663,21 @@ int dispatch(const void* q, const void* k, const void* v,
 
 }  // namespace tensor_core
 
-// ---- Dk > 128 (xLSTM's 1024-wide heads): two passes on the CUDA cores ------
+// ---- Dk > 128 (xLSTM's 1024-wide heads) -----------------------------------
 namespace wide {
 
+constexpr int DKW = 1024;     // the widest key dim
+
+// -- f32: two passes on the CUDA cores --------------------------------------
 constexpr int THREADS = 256;
 constexpr int DKT = 64;       // key dims per streamed tile of Q and K
 constexpr int DVT = 32;       // Dv columns per block of the state pass
-constexpr int DKW = 1024;     // the widest key dim
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 // Pass 1, one block per (chunk, head): the chunk's decayed causal scores
 // A_ij = (q_i . k_j) exp(cum_i - cum_j) for i >= j (else 0), Q and K
 // streamed through in tiles of DKT key dims, into A (BH, chunks, C, C).
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-scores_kernel(const T* __restrict__ q, const T* __restrict__ k,
+scores_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ log_decay, float* __restrict__ A,
               int seq, int Dk) {
   __shared__ float qs[C][DKT + 1];
@@ -669,8 +686,8 @@ scores_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int chunk = blockIdx.x, bh = blockIdx.y, t0 = chunk * C;
   const long long row0 = (long long)bh * seq;
-  const T* qh = q + row0 * Dk;
-  const T* kh = k + row0 * Dk;
+  const float* qh = q + row0 * Dk;
+  const float* kh = k + row0 * Dk;
   if (tid < 32)
     scan_chunk(log_decay + row0, t0, seq, cum, nullptr, nullptr, nullptr);
 
@@ -686,8 +703,8 @@ scores_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = i / DKT, d = i % DKT, t = t0 + r, dd = d0 + d;
       const bool in = t < seq && dd < Dk;
       const long long g = (long long)t * Dk + dd;
-      qs[r][d] = in ? to_f(qh[g]) : 0.0f;
-      ks[r][d] = in ? to_f(kh[g]) : 0.0f;
+      qs[r][d] = in ? qh[g] : 0.0f;
+      ks[r][d] = in ? kh[g] : 0.0f;
     }
     __syncthreads();
 #pragma unroll 4
@@ -722,11 +739,10 @@ scores_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // and each tile's rows of S are read for the outputs before they are
 // updated. Thread (tr, tc) owns rows tr and tr + 32 (of the chunk, and of
 // each tile of S) and the 4 adjacent columns 4 tc .. 4 tc + 3.
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-state_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const float* __restrict__ log_decay,
-             const float* __restrict__ A, T* __restrict__ out, int seq,
+state_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const float* __restrict__ log_decay,
+             const float* __restrict__ A, float* __restrict__ out, int seq,
              int Dk, int Dv) {
   extern __shared__ __align__(16) float smem_w[];
   constexpr int LDA = C + 1, LDT = DKT + 1;
@@ -744,11 +760,11 @@ state_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.y, dv0 = blockIdx.x * DVT;
   const int chunks = (seq + C - 1) / C;
   const long long row0 = (long long)bh * seq;
-  const T* qh = q + row0 * Dk;
-  const T* kh = k + row0 * Dk;
-  const T* vh = v + row0 * Dv;
+  const float* qh = q + row0 * Dk;
+  const float* kh = k + row0 * Dk;
+  const float* vh = v + row0 * Dv;
   const float* ldh = log_decay + row0;
-  T* oh = out + row0 * Dv;
+  float* oh = out + row0 * Dv;
 
   for (int i = tid; i < Dk * DVT; i += THREADS) S[i] = 0.0f;
 
@@ -760,8 +776,7 @@ state_kernel(const T* __restrict__ q, const T* __restrict__ k,
       As[(i / C) * LDA + i % C] = Ac[i];
     for (int i = tid; i < C * DVT; i += THREADS) {
       const int r = i / DVT, col = dv0 + i % DVT, t = t0 + r;
-      vs[i] = (t < seq && col < Dv) ? to_f(vh[(long long)t * Dv + col])
-                                    : 0.0f;
+      vs[i] = (t < seq && col < Dv) ? vh[(long long)t * Dv + col] : 0.0f;
     }
     if (tid < 32) scan_chunk(ldh, t0, seq, cum, ecum, w, etotal);
     __syncthreads();
@@ -790,8 +805,8 @@ state_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int r = i / DKT, d = i % DKT, t = t0 + r, dd = d0 + d;
         const bool in = t < seq && dd < Dk;
         const long long g = (long long)t * Dk + dd;
-        qs[r * LDT + d] = in ? to_f(qh[g]) : 0.0f;
-        kw[r * LDT + d] = in ? to_f(kh[g]) * w[r] : 0.0f;
+        qs[r * LDT + d] = in ? qh[g] : 0.0f;
+        kw[r * LDT + d] = in ? kh[g] * w[r] : 0.0f;
       }
       __syncthreads();                 // the tiles are whole
       // the carried state's part of the outputs, from this tile's rows
@@ -849,7 +864,7 @@ state_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < 4; ++e) {
         const int col = dv0 + 4 * tc + e;
         if (col < Dv)
-          store(oh + (long long)t * Dv + col, o[r][e] + ecum[i] * inter[r][e]);
+          oh[(long long)t * Dv + col] = o[r][e] + ecum[i] * inter[r][e];
       }
     }
   }
@@ -860,24 +875,455 @@ constexpr size_t state_bytes(int Dk) {
                           2 * C * (DKT + 1) + 3 * C + 1);
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* ld,
-           void* scores, void* out, int BH, int seq, int Dk, int Dv,
-           cudaStream_t stream) {
+int launch_f32(const float* q, const float* k, const float* v,
+               const float* ld, float* scores, float* out, int BH, int seq,
+               int Dk, int Dv, cudaStream_t stream) {
   // once, for the widest key dim
   static const cudaError_t attr = cudaFuncSetAttribute(
-      state_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      state_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)state_bytes(DKW));
   if (attr != cudaSuccess) return (int)attr;
   const int chunks = (seq + C - 1) / C;
-  scores_kernel<T><<<dim3(chunks, BH), THREADS, 0, stream>>>(
-      (const T*)q, (const T*)k, (const float*)ld, (float*)scores, seq, Dk);
+  scores_kernel<<<dim3(chunks, BH), THREADS, 0, stream>>>(q, k, ld, scores,
+                                                           seq, Dk);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  state_kernel<T><<<dim3((Dv + DVT - 1) / DVT, BH), THREADS,
-                    state_bytes(Dk), stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const float*)ld,
-      (const float*)scores, (T*)out, seq, Dk, Dv);
+  state_kernel<<<dim3((Dv + DVT - 1) / DVT, BH), THREADS, state_bytes(Dk),
+                 stream>>>(q, k, v, ld, scores, out, seq, Dk, Dv);
+  return (int)cudaGetLastError();
+}
+
+// -- bf16: the tensor cores, the state split over a cluster -----------------
+using namespace ::tc;
+constexpr int WARPS = 4;
+constexpr int TCT = 32 * WARPS;
+constexpr int ST = 64;        // key dims per streamed tile of the scores pass
+constexpr int KS = 128;       // key dims of a state block (its cluster rank)
+constexpr int VT = 16 * WARPS;  // value columns of a state block, 16 a warp
+constexpr int RANKS = DKW / KS;   // the most key slices, a cluster's blocks
+
+// (a, b) as a bf16 hi + lo pair of bf16x2 words
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(a - __low2float(h), b - __high2float(h)));
+}
+
+// Rows [r0, r0 + C) x columns [c0, c0 + W) of a (T, cols) bf16 matrix into
+// a tile of row stride ld, zero past T and past cols: 16-byte `cp.async`
+// (vec: cols a multiple of 8, the base 16-byte aligned) or element by
+// element.
+template <int W>
+__device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src,
+                                          int cols, int r0, int c0, int T,
+                                          bool vec) {
+  if (vec) {
+    constexpr int CH = W / 8;
+    for (int i = threadIdx.x; i < C * CH; i += TCT) {
+      const int r = i / CH, c = 8 * (i % CH);
+      const bool ok = r0 + r < T && c0 + c < cols;
+      cp_async16(dst + r * ld + c,
+                 ok ? src + (long long)(r0 + r) * cols + c0 + c : src,
+                 ok ? 16 : 0);
+    }
+  } else {             // 32 loads a thread in flight, then their stores
+    constexpr int N = 32;
+    static_assert(C * W % (N * TCT) == 0, "whole rounds of loads");
+    for (int i0 = threadIdx.x; i0 < C * W; i0 += N * TCT) {
+      bf16 x[N];
+#pragma unroll
+      for (int u = 0; u < N; ++u) {
+        const int i = i0 + u * TCT, r = i / W, c = i % W;
+        x[u] = r0 + r < T && c0 + c < cols
+                   ? src[(long long)(r0 + r) * cols + c0 + c]
+                   : __float2bfloat16(0.0f);
+      }
+#pragma unroll
+      for (int u = 0; u < N; ++u) {
+        const int i = i0 + u * TCT;
+        dst[(i / W) * ld + i % W] = x[u];
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+// the float2 at `p` in the shared memory of the cluster's block `rank`
+__device__ __forceinline__ float2 ld_rank(const float* p, int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a) : "r"(saddr(p)), "r"(rank));
+  float2 x;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(x.x), "=f"(x.y) : "r"(a) : "memory");
+  return x;
+}
+
+// Pass 1 (bf16), one block of 4 warps per (chunk, head): S_ij = q_i . k_j
+// on the tensor cores, Q and K streamed through in tiles of ST key dims (a
+// 2-stage `cp.async` ring); each warp owns 16 query rows and skips the key
+// tiles past them. Writes A_ij = S_ij exp(cum_i - cum_j) for i >= j, else
+// 0, to A (BH, chunks, C, C) in f32.
+__global__ void __launch_bounds__(TCT)
+scores_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const float* __restrict__ log_decay, float* __restrict__ A,
+                 int T, int Dk, int vec) {
+  constexpr int LDS = ST + 8;
+  __shared__ __align__(16) bf16 Qs[2][C][LDS];
+  __shared__ __align__(16) bf16 Ks[2][C][LDS];
+  __shared__ float cum[WARPS][C];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int chunk = blockIdx.x, bh = blockIdx.y, t0 = chunk * C;
+  const long long row0 = (long long)bh * T;
+  const bf16* qh = q + row0 * Dk;
+  const bf16* kh = k + row0 * Dk;
+  const int tiles = (Dk + ST - 1) / ST;
+
+  load_tile<ST>(&Qs[0][0][0], LDS, qh, Dk, t0, 0, T, vec);
+  load_tile<ST>(&Ks[0][0][0], LDS, kh, Dk, t0, 0, T, vec);
+  cp_async_commit();
+  float s[C / 8][4];
+#pragma unroll
+  for (int n = 0; n < C / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
+  for (int kt = 0; kt < tiles; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < tiles) {
+      const int c0 = (kt + 1) * ST;
+      load_tile<ST>(&Qs[buf ^ 1][0][0], LDS, qh, Dk, t0, c0, T, vec);
+      load_tile<ST>(&Ks[buf ^ 1][0][0], LDS, kh, Dk, t0, c0, T, vec);
+      cp_async_commit();
+      cp_async_wait<1>();              // tile kt has landed, kt + 1 in flight
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kc = 0; kc < ST / 16; ++kc) {
+      uint32_t qf[4];
+      ldsm_x4(qf, &Qs[buf][warp * 16 + lane % 16][kc * 16 + (lane / 16) * 8]);
+#pragma unroll
+      for (int n2 = 0; n2 < C / 16; ++n2) {
+        if (n2 > warp) continue;
+        uint32_t r[4];
+        ldsm_x4(r, &Ks[buf][n2 * 16 + lane % 8 + 8 * (lane / 16)]
+                      [kc * 16 + 8 * ((lane / 8) % 2)]);
+        mma(s[2 * n2], qf, r[0], r[1]);
+        mma(s[2 * n2 + 1], qf, r[2], r[3]);
+      }
+    }
+    __syncthreads();                   // tile kt is consumed before refill
+  }
+
+  const float* ldh = log_decay + row0;
+  const int ta = t0 + 2 * lane;
+  scan_pair(ta < T ? ldh[ta] : 0.0f, ta + 1 < T ? ldh[ta + 1] : 0.0f, lane,
+            cum[warp]);
+  __syncwarp();
+  const int ra = warp * 16 + g, rb = ra + 8;
+  const float ca = cum[warp][ra], cb = cum[warp][rb];
+  float* Ah = A + ((long long)bh * gridDim.x + chunk) * C * C;
+#pragma unroll
+  for (int n = 0; n < C / 8; ++n) {
+    const int j = n * 8 + 2 * t4;
+    const float c0 = cum[warp][j], c1 = cum[warp][j + 1];
+    *reinterpret_cast<float2*>(Ah + ra * C + j) = make_float2(
+        j <= ra ? s[n][0] * __expf(ca - c0) : 0.0f,
+        j + 1 <= ra ? s[n][1] * __expf(ca - c1) : 0.0f);
+    *reinterpret_cast<float2*>(Ah + rb * C + j) = make_float2(
+        j <= rb ? s[n][2] * __expf(cb - c0) : 0.0f,
+        j + 1 <= rb ? s[n][3] * __expf(cb - c1) : 0.0f);
+  }
+}
+
+// Pass 2 (bf16), one block of 4 warps per (key slice of KS dims, value tile
+// of VT columns, head); the ceil(Dk / KS) key slices of a (value tile,
+// head) form one thread-block cluster, the block's rank its slice. Warp w
+// owns the value columns 16 w .. 16 w + 15 of the tile and keeps its share
+// of the state transposed, S^T (16 columns x KS keys, f32), in accumulator
+// fragments across all chunks. Per chunk:
+//   P = S^T Q^T, the slice's partial of (Q S)^T, with S^T entering as a
+//     bf16 hi + lo pair straight from the accumulators (their layout is
+//     the A operand's), Q by `ldmatrix`;
+//   S^T <- exp(total) S^T + (V o w)^T K, V by `ldmatrix.trans` scaled by
+//     w_j = exp(total - cum_j) and split into hi + lo, K by
+//     `ldmatrix.trans` as it is;
+//   the cluster sums P over the slices through distributed shared memory:
+//     rank r takes the 8-step output tiles n = r, r + ranks, ..., forms
+//     their A V (A from pass 1 as hi + lo, V as it is) while the other
+//     ranks finish, then adds the ranks' partials in rank order, scales
+//     by exp(cum_i), adds A V and writes bf16.
+// One cluster barrier a chunk, split into its arrive (once this rank's P
+// is written) and its wait (before the partials are read), with the update
+// and A V between. P is double-buffered: a rank rewrites a buffer two
+// chunks on, after its wait of the chunk between, which every rank reaches
+// only once it has read that buffer. Warps whose columns all lie past Dv
+// skip their products but keep the barriers. K (and V when Dv is a
+// multiple of 8) arrive by 16-byte `cp.async` into a 2-stage ring, chunk
+// c + 1 in flight while c computes; Q has one stage, refilled for c + 1
+// once every warp has read it (after P), so that two P buffers fit beside
+// the tiles at 2 blocks an SM. Otherwise V is loaded 2 bytes an element
+// into the free stage after the update.
+__global__ void __launch_bounds__(TCT, 2)
+state_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v,
+                const float* __restrict__ log_decay,
+                const float* __restrict__ A, bf16* __restrict__ out, int T,
+                int Dk, int Dv, int vec_qk, int vec_v) {
+  constexpr int LDK = KS + 8, LDV = VT + 8, LDP = C + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);    // [C][LDK]
+  bf16* Ks = Qs + C * LDK;                         // [2][C][LDK]
+  bf16* Vs = Ks + 2 * C * LDK;                     // [2][C][LDV]
+  float* Ps = reinterpret_cast<float*>(Vs + 2 * C * LDV);  // [2][VT][LDP]
+  float* cum = Ps + 2 * VT * LDP;                  // [WARPS][C]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int rank = blockIdx.x, ranks = gridDim.x;
+  const int k0 = rank * KS, dv0 = blockIdx.y * VT, bh = blockIdx.z;
+  const bool active = dv0 + 16 * warp < Dv;
+  const int chunks = (T + C - 1) / C;
+  const long long row0 = (long long)bh * T;
+  const bf16* qh = q + row0 * Dk;
+  const bf16* kh = k + row0 * Dk;
+  const bf16* vh = v + row0 * Dv;
+  const float* ldh = log_decay + row0;
+  const float* Ab = A + (long long)bh * chunks * C * C;  // this head's
+  bf16* oh = out + row0 * Dv;
+  float* wcum = cum + warp * C;
+
+  load_tile<KS>(Qs, LDK, qh, Dk, 0, k0, T, vec_qk);
+  load_tile<KS>(Ks, LDK, kh, Dk, 0, k0, T, vec_qk);
+  load_tile<VT>(Vs, LDV, vh, Dv, 0, dv0, T, vec_v);
+  cp_async_commit();
+
+  float sf[KS / 8][4];                  // S^T: columns g (+ 8), keys 8 n + 2 t4
+#pragma unroll
+  for (int n = 0; n < KS / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sf[n][e] = 0.0f;
+  float la = 2 * lane < T ? ldh[2 * lane] : 0.0f;
+  float lb = 2 * lane + 1 < T ? ldh[2 * lane + 1] : 0.0f;
+  for (int c = 0; c < chunks; ++c) {
+    const int buf = c & 1, t0 = c * C;
+    const float ld_a = la, ld_b = lb;
+    const int tn = t0 + C + 2 * lane;
+    la = tn < T ? ldh[tn] : 0.0f;
+    lb = tn + 1 < T ? ldh[tn + 1] : 0.0f;
+    const bool more = c + 1 < chunks;
+    if (more) {                         // K and V of c + 1 (Q follows P)
+      const int nxt = buf ^ 1, r1 = t0 + C;
+      load_tile<KS>(Ks + nxt * C * LDK, LDK, kh, Dk, r1, k0, T, vec_qk);
+      if (vec_v)
+        load_tile<VT>(Vs + nxt * C * LDV, LDV, vh, Dv, r1, dv0, T, true);
+      cp_async_commit();
+      cp_async_wait<1>();               // chunk c has landed, c + 1 in flight
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();                    // chunk c's tiles are whole
+
+    const float total = scan_pair(ld_a, ld_b, lane, wcum);
+    __syncwarp();
+    const bf16* Kt = Ks + buf * C * LDK;
+    const bf16* Vt = Vs + buf * C * LDV;
+    // this lane's rows of V^T as an A fragment, 16-step chunk kc
+    auto v_frag = [&](uint32_t (&a)[4], int kc) {
+      ldsm_x4_t(a, Vt + (kc * 16 + lane % 8 + 8 * (lane / 16)) * LDV +
+                       16 * warp + 8 * ((lane / 8) % 2));
+    };
+
+    // P = (S^T_hi + S^T_lo) Q^T: columns g (+ 8), steps 8 n + 2 t4 (+ 1)
+    float p[C / 8][4];
+#pragma unroll
+    for (int n = 0; n < C / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[n][e] = 0.0f;
+    if (active) {
+#pragma unroll
+      for (int kk = 0; kk < KS / 16; ++kk) {
+        uint32_t ah[4], al[4];
+        split2(sf[2 * kk][0], sf[2 * kk][1], ah[0], al[0]);
+        split2(sf[2 * kk][2], sf[2 * kk][3], ah[1], al[1]);
+        split2(sf[2 * kk + 1][0], sf[2 * kk + 1][1], ah[2], al[2]);
+        split2(sf[2 * kk + 1][2], sf[2 * kk + 1][3], ah[3], al[3]);
+#pragma unroll
+        for (int n2 = 0; n2 < C / 16; ++n2) {
+          uint32_t r[4];
+          ldsm_x4(r, Qs + (n2 * 16 + lane % 8 + 8 * (lane / 16)) * LDK +
+                         kk * 16 + 8 * ((lane / 8) % 2));
+          mma(p[2 * n2], ah, r[0], r[1]);
+          mma(p[2 * n2], al, r[0], r[1]);
+          mma(p[2 * n2 + 1], ah, r[2], r[3]);
+          mma(p[2 * n2 + 1], al, r[2], r[3]);
+        }
+      }
+    }
+    float* Pc = Ps + buf * VT * LDP;    // free: every rank read it before
+    if (active) {                       // chunk c - 1's arrive
+#pragma unroll
+      for (int n = 0; n < C / 8; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(
+              Pc + (16 * warp + g + 8 * h) * LDP + 8 * n + 2 * t4) =
+              make_float2(p[n][2 * h], p[n][2 * h + 1]);
+    }
+    cluster_arrive();
+    __syncthreads();                    // every warp has read Q
+    if (more) {
+      load_tile<KS>(Qs, LDK, qh, Dk, t0 + C, k0, T, vec_qk);
+      cp_async_commit();
+    }
+
+    // S^T <- exp(total) S^T + (V o w)^T K
+    if (active) {
+      const float et = __expf(total);
+#pragma unroll
+      for (int n = 0; n < KS / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sf[n][e] *= et;
+#pragma unroll
+      for (int kc = 0; kc < C / 16; ++kc) {
+        const int j = kc * 16 + 2 * t4;
+        const float w0 = __expf(total - wcum[j]);
+        const float w1 = __expf(total - wcum[j + 1]);
+        const float w8 = __expf(total - wcum[j + 8]);
+        const float w9 = __expf(total - wcum[j + 9]);
+        uint32_t a[4], hi[4], lo[4];
+        v_frag(a, kc);
+        tensor_core::scaled(a[0], w0, w1, hi[0], lo[0]);
+        tensor_core::scaled(a[1], w0, w1, hi[1], lo[1]);
+        tensor_core::scaled(a[2], w8, w9, hi[2], lo[2]);
+        tensor_core::scaled(a[3], w8, w9, hi[3], lo[3]);
+#pragma unroll
+        for (int n2 = 0; n2 < KS / 16; ++n2) {
+          uint32_t r[4];
+          ldsm_x4_t(r, Kt + (kc * 16 + lane % 8 + 8 * ((lane / 8) % 2)) * LDK +
+                           n2 * 16 + 8 * (lane / 16));
+          mma(sf[2 * n2], hi, r[0], r[1]);
+          mma(sf[2 * n2], lo, r[0], r[1]);
+          mma(sf[2 * n2 + 1], hi, r[2], r[3]);
+          mma(sf[2 * n2 + 1], lo, r[2], r[3]);
+        }
+      }
+    }
+    // A V for this rank's output tiles n = rank, rank + ranks, ... (at most
+    // 4: ranks >= 2), A from pass 1 as hi + lo, while other ranks finish
+    // their partials
+    float av[C / 16][4];
+#pragma unroll
+    for (int m = 0; m < C / 16; ++m) {
+      const int n = rank + m * ranks;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) av[m][e] = 0.0f;
+      if (!active || n >= C / 8 || t0 + 8 * n >= T) continue;
+      const float* arow = Ab + ((long long)c * C + 8 * n + g) * C + 2 * t4;
+#pragma unroll
+      for (int kc = 0; kc < C / 16; ++kc) {
+        if (kc * 16 > 8 * n + 7) continue;     // A is 0 past the diagonal
+        const float2 x = *reinterpret_cast<const float2*>(arow + 16 * kc);
+        const float2 y = *reinterpret_cast<const float2*>(arow + 16 * kc + 8);
+        uint32_t a[4], bh0, bl0, bh1, bl1;
+        split2(x.x, x.y, bh0, bl0);
+        split2(y.x, y.y, bh1, bl1);
+        v_frag(a, kc);
+        mma(av[m], a, bh0, bh1);
+        mma(av[m], a, bl0, bl1);
+      }
+    }
+    // V past a row's 16-byte reach (Dv not a multiple of 8: 1025), 2 bytes
+    // an element, into the free stage for chunk c + 1
+    if (!vec_v && more)
+      load_tile<VT>(Vs + (buf ^ 1) * C * LDV, LDV, vh, Dv, t0 + C, dv0, T,
+                    false);
+    cluster_wait();                     // every rank's P of chunk c is whole
+
+    // this rank's output tiles: the ranks' partials in rank order, times
+    // exp(cum_i), plus A V
+#pragma unroll
+    for (int m = 0; m < C / 16; ++m) {
+      const int n = rank + m * ranks;
+      if (!active || n >= C / 8 || t0 + 8 * n >= T) continue;
+      const float* pa = Pc + (16 * warp + g) * LDP + 8 * n + 2 * t4;
+      float2 px[RANKS], py[RANKS];
+#pragma unroll
+      for (int r = 0; r < RANKS; ++r) {         // every load, then the sums
+        if (r >= ranks) continue;
+        px[r] = ld_rank(pa, r);
+        py[r] = ld_rank(pa + 8 * LDP, r);
+      }
+      float o[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int r = 0; r < RANKS; ++r) {
+        if (r >= ranks) continue;
+        o[0] += px[r].x;
+        o[1] += px[r].y;
+        o[2] += py[r].x;
+        o[3] += py[r].y;
+      }
+      const int i = 8 * n + 2 * t4;
+      const float e0 = __expf(wcum[i]), e1 = __expf(wcum[i + 1]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = dv0 + 16 * warp + g + 8 * h;
+        const float y0 = o[2 * h] * e0 + av[m][2 * h];
+        const float y1 = o[2 * h + 1] * e1 + av[m][2 * h + 1];
+        if (col >= Dv) continue;
+        if (t0 + i < T)
+          oh[(long long)(t0 + i) * Dv + col] = __float2bfloat16(y0);
+        if (t0 + i + 1 < T)
+          oh[(long long)(t0 + i + 1) * Dv + col] = __float2bfloat16(y1);
+      }
+    }
+    __syncthreads();                    // chunk c's K and V stage is free
+  }
+  cluster_arrive();                     // no block leaves while its P is read
+  cluster_wait();
+}
+
+int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const float* ld,
+                float* scores, bf16* out, int BH, int T, int Dk, int Dv,
+                cudaStream_t stream) {
+  constexpr int bytes =
+      (int)sizeof(bf16) * C * (3 * (KS + 8) + 2 * (VT + 8)) +
+      (int)sizeof(float) * (2 * VT * (C + 8) + WARPS * C);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      state_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != cudaSuccess) return (int)attr;
+  if (BH > 65535) return (int)cudaErrorInvalidValue;
+  const int vec_qk = Dk % 8 == 0 && (((uintptr_t)q | (uintptr_t)k) & 15) == 0;
+  const int vec_v = Dv % 8 == 0 && ((uintptr_t)v & 15) == 0;
+  const int chunks = (T + C - 1) / C;
+  scores_tc_kernel<<<dim3(chunks, BH), TCT, 0, stream>>>(q, k, ld, scores, T,
+                                                          Dk, vec_qk);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((Dk + KS - 1) / KS, (Dv + VT - 1) / VT, BH);
+  cfg.blockDim = dim3(TCT);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = cfg.gridDim.x;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t launched = cudaLaunchKernelEx(
+      &cfg, state_tc_kernel, q, k, v, ld, (const float*)scores, out, T, Dk,
+      Dv, vec_qk, vec_v);
+  if (launched != cudaSuccess) return (int)launched;
   return (int)cudaGetLastError();
 }
 
@@ -900,8 +1346,8 @@ extern "C" int linear_attention_bf16(const void* q, const void* k,
                                dv_tile, stream);
 }
 
-// Dk in (128, 1024], f32 or bf16 (`bf16` != 0): the two-pass path, with
-// `scores` a (BH, ceil(seq / 64), 64, 64) f32 scratch.
+// Dk in (128, 1024], f32 or bf16 (`bf16` != 0), with `scores` a (BH,
+// ceil(seq / 64), 64, 64) f32 scratch for the chunks' decayed scores.
 extern "C" int linear_attention_wide(const void* q, const void* k,
                                      const void* v, const void* log_decay,
                                      void* scores, void* out, int BH,
@@ -910,8 +1356,13 @@ extern "C" int linear_attention_wide(const void* q, const void* k,
   if (BH <= 0 || seq <= 0 || Dv <= 0) return 0;
   if (Dk <= DKMAX || Dk > wide::DKW) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return bf16 ? wide::launch<__nv_bfloat16>(q, k, v, log_decay, scores, out,
-                                            BH, seq, Dk, Dv, s)
-              : wide::launch<float>(q, k, v, log_decay, scores, out, BH, seq,
-                                    Dk, Dv, s);
+  const float* ld = (const float*)log_decay;
+  if (bf16)
+    return wide::launch_bf16(
+        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+        (const __nv_bfloat16*)v, ld, (float*)scores, (__nv_bfloat16*)out, BH,
+        seq, Dk, Dv, s);
+  return wide::launch_f32((const float*)q, (const float*)k, (const float*)v,
+                          ld, (float*)scores, (float*)out, BH, seq, Dk, Dv,
+                          s);
 }

@@ -22,14 +22,22 @@ as a bf16 hi + lo pair (about 2^-16 relative); with the output rounded
 to bf16 the two agree within rtol = atol = 2e-2 and 1e-2 relative L2 per
 row.
 
-Key dims above 128 (xlstm-1.3b's mLSTM: Dk 1024, Dv 1025) take a third
-path, for either dtype: a first kernel forms each chunk's decayed scores
-A once (into a (BH, chunks, 64, 64) f32 scratch), a second walks the
-chunks per (head, 32-column Dv tile) with the (Dk, 32) f32 state in
-shared memory, all in f32 on the CUDA cores. Against the plain version
-it differs by the order of f32 sums only: within rtol = atol = 3e-4 for
-f32 inputs, and for bf16 inputs within the output's bf16 rounding (2e-2,
-1e-2 relative L2 per row).
+Key dims above 128 (xlstm-1.3b's mLSTM: Dk 1024, Dv 1025) take a wide
+path of two launches, bound by operations (35.2 GFLOP at xlstm-1.3b's
+prefill, 0.036 ms at the tensor cores' bf16 peak, against 0.02 ms of
+bytes): a first kernel forms each chunk's decayed scores A
+once (into a (BH, chunks, 64, 64) f32 scratch), a second walks the
+chunks with the state split over blocks. bf16 runs on the tensor cores:
+a block owns 128 key dims x 64 value columns of a head's f32 state in
+registers, the ceil(Dk / 128) key-slice blocks of a (head, value tile)
+form a thread-block cluster that sums their Q S partials in rank order
+through distributed shared memory, and the output rounds as the Dk <= 128
+path's does (the same hi + lo pairs, w scaling V instead of K): within
+2e-2 and 1e-2 relative L2 per row. Dv = 1025 (the normaliser's ones
+column) runs its last column in one warp of 16 columns, and its V rows,
+2050 bytes apart, load 2 bytes an element. f32 stays on the CUDA cores,
+per (head, 32-column Dv tile) with the (Dk, 32) state in shared memory,
+within 3e-4. Both repeat their bits from launch to launch.
 """
 from __future__ import annotations
 
@@ -38,7 +46,7 @@ import torch
 from . import _lib
 
 MAX_KEY_DIM = 128      # the one-pass kernels keep the state in registers
-WIDE_KEY_DIM = 1024    # the two-pass kernel keeps (Dk, 32) f32 of it on chip
+WIDE_KEY_DIM = 1024    # the wide path splits the state over blocks
 CHUNK = 64             # steps per chunk of every path
 
 

@@ -553,6 +553,15 @@ def test_flash_attention_one_key_rows_copy_v(dev, dtype):
     (2, 200, 1024, 1025, torch.bfloat16, None),
     (3, 130, 256, 257, torch.float32, None),
     (2, 64, 129, 40, torch.bfloat16, None),
+    # the wide path at one head: bf16 on the tensor cores over a cluster of
+    # key slices (129: two ranks, the second one key wide; 1000: a partial
+    # last slice), Dv with a one-column tail (1025), 2-byte V rows (1025),
+    # 16-byte rows (1024, 1032, 40), a tail warp (40); T of one step, one
+    # chunk, one step past it, ragged; f32 on the CUDA cores
+    *[(1, t, dk, dv, torch.bfloat16, None) for dk in (129, 1000, 1024)
+      for dv in (1024, 1025, 1032, 40) for t in (1, 64, 65, 200)],
+    *[(1, t, dk, dv, torch.float32, None) for dk in (129, 1000, 1024)
+      for dv in (1025, 40) for t in (1, 65)],
 ])
 def test_linear_attention_close_to_plain(dev, monkeypatch, bh, t, dk, dv,
                                          dtype, tile):
@@ -578,13 +587,18 @@ def test_linear_attention_close_to_plain(dev, monkeypatch, bh, t, dk, dv,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_linear_attention_steep_decays_stay_finite(dev, dtype):
+@pytest.mark.parametrize("dk,dv", [(64, 64), (1024, 1025)])
+def test_linear_attention_steep_decays_stay_finite(dev, dtype, dk, dv):
     """Mamba-2-like decays: the cumulative log-decay falls below -100
-    within one chunk, where a growth exp(cum_i - cum_j), i < j, is inf."""
+    within one chunk, where a growth exp(cum_i - cum_j), i < j, is inf;
+    also on the wide path (xlstm-1.3b's Dk 1024, Dv 1025). Keys are
+    scaled by (64 / Dk)^1/2, so q . k keeps Dk 64's spread, as the mLSTM
+    scales its keys by Dk^-1/2."""
     g = torch.Generator(device=dev).manual_seed(13)
-    bh, t, dk, dv = 4, 256, 64, 64
+    bh, t = 4, 256
     q = torch.randn(bh, t, dk, generator=g, device=dev).to(dtype)
-    k = torch.randn(bh, t, dk, generator=g, device=dev).to(dtype)
+    k = (torch.randn(bh, t, dk, generator=g, device=dev)
+         * (64 / dk) ** 0.5).to(dtype)
     v = torch.randn(bh, t, dv, generator=g, device=dev).to(dtype)
     ld = -4.0 * torch.rand(bh, t, generator=g, device=dev)
     got = linear_attention(q, k, v, ld)
@@ -593,6 +607,24 @@ def test_linear_attention_steep_decays_stay_finite(dev, dtype):
     torch.testing.assert_close(got.float(),
                                linear_attention_plain(q, k, v, ld).float(),
                                rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_linear_attention_wide_path_repeats_its_bits(dev, dtype):
+    """Two launches on the same inputs give the same bits: the wide path
+    sums the key slices' partials in rank order, with no atomics (xlstm-1.3b
+    amplifies one rounding into its logits, and chip_smoke.py's prefill
+    gates read one launch)."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    bh, t, dk, dv = 4, 200, 1024, 1025
+    q = torch.randn(bh, t, dk, generator=g, device=dev).to(dtype)
+    k = (torch.randn(bh, t, dk, generator=g, device=dev)
+         * dk ** -0.5).to(dtype)
+    v = torch.randn(bh, t, dv, generator=g, device=dev).to(dtype)
+    ld = torch.nn.functional.logsigmoid(
+        torch.randn(bh, t, generator=g, device=dev))
+    first = linear_attention(q, k, v, ld)
+    assert torch.equal(linear_attention(q, k, v, ld), first)
 
 
 def test_lm_kernels_refuse_other_dtypes(dev):

@@ -248,7 +248,7 @@ def test_linear_attention_refuses_bad_shapes(bad):
 
 
 def _linear_tensor_core_rounding(q, k, v, log_decay, *, chunk=64,
-                                 split_a=True, split_kw=True):
+                                 split_a=True, split_kw=True, key_slice=None):
     """The bf16 CUDA kernel's arithmetic in plain torch on the CPU
     (``csrc/linear_attention.cu``, namespace ``tensor_core``): per chunk of
     64 steps, f32 scores from the bf16 inputs and the causal decay
@@ -257,7 +257,10 @@ def _linear_tensor_core_rounding(q, k, v, log_decay, *, chunk=64,
     the update adds (K o w)^T V with K o w as a hi + lo pair and the state
     kept in f32; the output rounded to bf16. ``split_a`` / ``split_kw``
     False round that operand to bf16 once instead (the design the kernel
-    did not take)."""
+    did not take). ``key_slice``: the wide path's order (namespace
+    ``wide``, Dk > 128): Q S is summed over slices of that many key dims,
+    one cluster rank each, in rank order, and the decay weights w scale V
+    instead of K (the same product K^T (w o V)), as a hi + lo pair."""
 
     def hi_lo(x, split=True):
         hi = x.to(torch.bfloat16).float()
@@ -280,13 +283,20 @@ def _linear_tensor_core_rounding(q, k, v, log_decay, *, chunk=64,
                                                               float("-inf"))
         a_hi, a_lo = hi_lo(qc @ kc.transpose(1, 2) * torch.exp(gap), split_a)
         s_hi, s_lo = hi_lo(S)
-        o = (torch.exp(cum)[..., None] * (qc @ s_hi + qc @ s_lo)
-             + a_hi @ vc + a_lo @ vc)
+        qs = torch.zeros(BH, chunk, v.shape[-1])
+        for k0 in range(0, Dk, key_slice or Dk):
+            ks = slice(k0, k0 + (key_slice or Dk))
+            qs = qs + (qc[..., ks] @ s_hi[:, ks] + qc[..., ks] @ s_lo[:, ks])
+        o = torch.exp(cum)[..., None] * qs + a_hi @ vc + a_lo @ vc
         out.append(o.to(torch.bfloat16))
-        kw_hi, kw_lo = hi_lo(kc * torch.exp(total - cum)[..., None],
-                             split_kw)
-        S = (torch.exp(total)[..., None] * S
-             + kw_hi.transpose(1, 2) @ vc + kw_lo.transpose(1, 2) @ vc)
+        w = torch.exp(total - cum)[..., None]
+        if key_slice is None:
+            kw_hi, kw_lo = hi_lo(kc * w, split_kw)
+            upd = kw_hi.transpose(1, 2) @ vc + kw_lo.transpose(1, 2) @ vc
+        else:
+            vw_hi, vw_lo = hi_lo(vc * w, split_kw)
+            upd = kc.transpose(1, 2) @ vw_hi + kc.transpose(1, 2) @ vw_lo
+        S = torch.exp(total)[..., None] * S + upd
     return torch.cat(out, dim=1)[:, :T]
 
 
@@ -325,21 +335,44 @@ def _mamba2_inputs(seed, bh, t, dk, dv, steep=False):
     return bf, torch.from_numpy(ld)
 
 
+def _xlstm_inputs(seed, bh, t, dk, dv):
+    """bf16 q, k, v and f32 log-decays drawn as ``chip_smoke.py``'s
+    ``linear_inputs`` draws xlstm-1.3b's mLSTM: log_sigmoid of a forget
+    pre-activation, k scaled by Dk^-1/2 and a sigmoid input gate, v with
+    the normaliser's ones-column last."""
+    rng = np.random.default_rng(seed)
+    ld = -np.logaddexp(0.0, -rng.normal(size=(bh, t))).astype(np.float32)
+    gate = 1.0 / (1.0 + np.exp(-rng.normal(size=(bh, t, 1))))
+    k = rng.normal(size=(bh, t, dk)) * dk ** -0.5 * gate
+    v = np.concatenate([rng.normal(size=(bh, t, dv - 1)),
+                        np.ones((bh, t, 1))], axis=-1)
+    q = rng.normal(size=(bh, t, dk))
+    bf = [torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+          for a in (q, k, v)]
+    return bf, torch.from_numpy(ld)
+
+
 @pytest.mark.parametrize("t,dk,dv,draw", [
     (40, 64, 64, "mamba2"), (200, 64, 64, "mamba2"), (512, 64, 64, "mamba2"),
     (200, 128, 64, "mamba2"), (200, 64, 64, "steep"), (256, 64, 64, "card"),
-    (200, 128, 64, "card")])
+    (200, 128, 64, "card"), (512, 1024, 1025, "xlstm"), (200, 129, 40, "card")])
 def test_linear_attention_tensor_core_rounding_within_card_gate(t, dk, dv,
                                                                 draw):
     """The bf16 kernel's roundings (A, K o w and S as bf16 hi + lo pairs)
     keep it within the gates the card holds it to: 2e-2 abs and 1e-2
     relative L2 per output row, against ``ref.linear_attention`` on the
-    same bf16 inputs and against the plain version."""
+    same bf16 inputs and against the plain version. Past 128 key dims the
+    wide path's roundings and order: S's hi + lo pair per key slice of
+    128, the slices' Q S partials summed in rank order, w o V as the hi +
+    lo pair (xlstm-1.3b's draw at its Dk 1024, Dv 1025, and Dk 129)."""
     if draw == "card":
         (q, k, v), ld = _card_test_inputs(t + dk, 2, t, dk, dv)
+    elif draw == "xlstm":
+        (q, k, v), ld = _xlstm_inputs(t + dk, 2, t, dk, dv)
     else:
         (q, k, v), ld = _mamba2_inputs(t + dk, 8, t, dk, dv, draw == "steep")
-    got = _linear_tensor_core_rounding(q, k, v, ld).float()
+    got = _linear_tensor_core_rounding(
+        q, k, v, ld, key_slice=128 if dk > 128 else None).float()
     want = np.asarray(ref.linear_attention(
         *(jnp.asarray(a.float().numpy(), jnp.bfloat16) for a in (q, k, v)),
         jnp.asarray(ld.numpy())), np.float32)
