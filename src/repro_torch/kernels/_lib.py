@@ -203,3 +203,19 @@ def require_cuda(name: str, *specs: tuple[torch.Tensor, torch.dtype]
 def require_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
     """:func:`require_cuda` with every tensor float32."""
     require_cuda(name, *((t, torch.float32) for t in tensors))
+
+
+def refuse_grad(name: str, plain: str, *tensors: torch.Tensor) -> None:
+    """Refuse inputs that require grad: a hand kernel writes its output
+    through a raw pointer, so autograd would see no graph and a training
+    step would take a wrong gradient without an error. The reference
+    cannot differentiate its Pallas kernels either. Checked on every
+    device, so the CPU (where the wrapper runs the plain version) refuses
+    what the card refuses.
+
+    Raises:
+        ValueError: grad mode is on and an input requires grad.
+    """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(f"{name}: the hand kernel has no backward; take "
+                         f"gradients through its plain version ({plain})")

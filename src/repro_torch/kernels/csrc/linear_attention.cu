@@ -63,7 +63,8 @@
 // f32 inputs: the CUDA cores, one block of 256 threads per (head,
 // 32-column Dv tile), S in shared memory in f32; the C x C scores are
 // recomputed for each Dv tile. Rows of q and k have an odd stride, so the
-// rows a warp reads fall in distinct banks.
+// rows a warp reads fall in distinct banks. The chunk's prefix sums of
+// log-decays are f64 (scan_chunk), so each decay is f32-exact.
 //
 // Dk in (128, 1024] (xlstm-1.3b's mLSTM: Dk 1024, Dv 1025 with the
 // normaliser's ones-column): `wide`. A head's state is 1024 x 1025 f32
@@ -121,6 +122,12 @@ constexpr int C = 64;         // steps per chunk
 constexpr int DVT = 32;       // Dv columns per block (f32 path)
 constexpr int THREADS = 256;  // f32 path
 constexpr int DKMAX = 128;
+// The f32 paths sum a dot product over the key dims in runs of DSUM fmaf
+// steps, each run's partial then added to the total: with one accumulator
+// over Dk = 1024 keys (|q . k| about 32 at unscaled keys) the wide path was
+// 3x the plain version's distance from an f64 run on an H100, and within
+// it with runs of 16.
+constexpr int DSUM = 16;
 
 // Inclusive scan of a chunk's C = 64 log-decays by one warp, lane l holding
 // steps 2l and 2l + 1 (a and b): writes cum and returns the chunk's total.
@@ -139,25 +146,48 @@ __device__ __forceinline__ float scan_pair(float a, float b, int lane,
   return __shfl_sync(0xffffffffu, s, 31);
 }
 
+// scan_pair in f64, for the f32 paths.
+__device__ __forceinline__ double scan_pair_f64(double a, double b, int lane,
+                                                double* cum) {
+  double s = a + b;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const double up = __shfl_up_sync(0xffffffffu, s, o);
+    if (lane >= o) s += up;
+  }
+  double prev = __shfl_up_sync(0xffffffffu, s, 1);
+  if (lane == 0) prev = 0.0;
+  cum[2 * lane] = prev + a;
+  cum[2 * lane + 1] = s;
+  return __shfl_sync(0xffffffffu, s, 31);
+}
+
 // Warp 0 loads chunk t0's log-decays (zero past seq) and scans them into
 // cum; with ecum given, also exp(cum_i), w_j = exp(total - cum_j) and
-// exp(total).
+// exp(total). The f32 paths keep cum in f64: a decay exp(cum_i - cum_j)
+// comes from the difference of two prefix sums, which reach -256 within a
+// chunk at Mamba-2's decays, and an f32 difference would carry an error of
+// a few ulps of |cum| (about 1e-5 at 256) into the exponent, so a near
+// step's decay would be off by as much, relatively. At unscaled 1024-wide
+// keys (q . k about 32) that put the f32 wide path 1.5e-3 from an f64
+// run of the recurrence on an H100, 13x the plain sequential version's
+// distance; differences of f64 sums are exact to their own f32 rounding.
 __device__ __forceinline__ void scan_chunk(const float* ldh, int t0, int seq,
-                                           float* cum, float* ecum, float* w,
+                                           double* cum, float* ecum, float* w,
                                            float* etotal) {
   const int lane = threadIdx.x;
   const int t = t0 + 2 * lane;
-  const float a = t < seq ? ldh[t] : 0.0f;
-  const float b = t + 1 < seq ? ldh[t + 1] : 0.0f;
-  const float total = scan_pair(a, b, lane, cum);
+  const double a = t < seq ? ldh[t] : 0.0;
+  const double b = t + 1 < seq ? ldh[t + 1] : 0.0;
+  const double total = scan_pair_f64(a, b, lane, cum);
   if (ecum != nullptr) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {     // the lane's own entries of cum
       const int j = 2 * lane + e;
-      ecum[j] = expf(cum[j]);
-      w[j] = expf(total - cum[j]);
+      ecum[j] = expf((float)cum[j]);
+      w[j] = expf((float)(total - cum[j]));
     }
-    if (lane == 0) *etotal = expf(total);
+    if (lane == 0) *etotal = expf((float)total);
   }
 }
 
@@ -175,8 +205,8 @@ linear_attention_kernel(const float* __restrict__ q,
   float* vs = ks + C * ldk;            // [C][DVT]
   float* As = vs + C * DVT;            // [C][lda]
   float* S = As + C * lda;             // [Dk][DVT]
-  float* cum = S + Dk * DVT;           // [C]
-  float* ecum = cum + C;               // [C] exp(cum_i)
+  double* cum = reinterpret_cast<double*>(S + Dk * DVT);  // [C], f64
+  float* ecum = reinterpret_cast<float*>(cum + C);  // [C] exp(cum_i)
   float* w = ecum + C;                 // [C] exp(total - cum_j)
   float* etotal = w + C;               // [1] exp(total)
 
@@ -219,16 +249,28 @@ linear_attention_kernel(const float* __restrict__ q,
       for (int r = 0; r < 4; ++r)
 #pragma unroll
         for (int c = 0; c < 4; ++c) s[r][c] = 0.0f;
-      for (int d = 0; d < Dk; ++d) {
-        float a[4], b[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) a[r] = qs[(ti * 4 + r) * ldk + d];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) b[c] = ks[(tj + 16 * c) * ldk + d];
+      for (int d0 = 0; d0 < Dk; d0 += DSUM) {
+        float p[4][4];
 #pragma unroll
         for (int r = 0; r < 4; ++r)
 #pragma unroll
-          for (int c = 0; c < 4; ++c) s[r][c] = fmaf(a[r], b[c], s[r][c]);
+          for (int c = 0; c < 4; ++c) p[r][c] = 0.0f;
+        const int dend = min(d0 + DSUM, Dk);
+        for (int d = d0; d < dend; ++d) {
+          float a[4], b[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) a[r] = qs[(ti * 4 + r) * ldk + d];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) b[c] = ks[(tj + 16 * c) * ldk + d];
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) p[r][c] = fmaf(a[r], b[c], p[r][c]);
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) s[r][c] += p[r][c];
       }
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
@@ -236,7 +278,8 @@ linear_attention_kernel(const float* __restrict__ q,
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int j = tj + 16 * c;
-          As[i * lda + j] = i >= j ? s[r][c] * expf(cum[i] - cum[j]) : 0.0f;
+          As[i * lda + j] =
+              i >= j ? s[r][c] * expf((float)(cum[i] - cum[j])) : 0.0f;
         }
       }
     }
@@ -262,17 +305,28 @@ linear_attention_kernel(const float* __restrict__ q,
           for (int c = 0; c < 4; ++c)
             intra[r][c] = fmaf(a[r], b[c], intra[r][c]);
       }
-      for (int d = 0; d < Dk; ++d) {
-        float a[2], b[4];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) a[r] = qs[(tr + 32 * r) * ldk + d];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) b[c] = S[d * DVT + tc + 8 * c];
+      for (int d0 = 0; d0 < Dk; d0 += DSUM) {
+        float p[2][4];
 #pragma unroll
         for (int r = 0; r < 2; ++r)
 #pragma unroll
-          for (int c = 0; c < 4; ++c)
-            inter[r][c] = fmaf(a[r], b[c], inter[r][c]);
+          for (int c = 0; c < 4; ++c) p[r][c] = 0.0f;
+        const int dend = min(d0 + DSUM, Dk);
+        for (int d = d0; d < dend; ++d) {
+          float a[2], b[4];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) a[r] = qs[(tr + 32 * r) * ldk + d];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) b[c] = S[d * DVT + tc + 8 * c];
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) p[r][c] = fmaf(a[r], b[c], p[r][c]);
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) inter[r][c] += p[r][c];
       }
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -333,14 +387,15 @@ int launch_f32(const void* q, const void* k, const void* v,
   if (BH <= 0 || seq <= 0 || Dv <= 0) return 0;
   if (Dk < 1 || Dk > DKMAX) return (int)cudaErrorInvalidValue;
   const int ldk = Dk | 1;
+  // cum is f64: 2 C floats' room
   const size_t bytes = sizeof(float) * (size_t)(2 * C * ldk + C * DVT +
                                                 C * (C + 1) + Dk * DVT +
-                                                3 * C + 1);
+                                                4 * C + 1);
   // once, for the largest key dim
   static const cudaError_t attr = cudaFuncSetAttribute(
       linear_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)(sizeof(float) * (2 * C * (DKMAX | 1) + C * DVT + C * (C + 1) +
-                             DKMAX * DVT + 3 * C + 1)));
+                             DKMAX * DVT + 4 * C + 1)));
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((Dv + DVT - 1) / DVT, BH);
   linear_attention_kernel<<<grid, THREADS, bytes, (cudaStream_t)stream>>>(
@@ -682,7 +737,7 @@ scores_kernel(const float* __restrict__ q, const float* __restrict__ k,
               int seq, int Dk) {
   __shared__ float qs[C][DKT + 1];
   __shared__ float ks[C][DKT + 1];
-  __shared__ float cum[C];
+  __shared__ double cum[C];
   const int tid = threadIdx.x;
   const int chunk = blockIdx.x, bh = blockIdx.y, t0 = chunk * C;
   const long long row0 = (long long)bh * seq;
@@ -707,17 +762,28 @@ scores_kernel(const float* __restrict__ q, const float* __restrict__ k,
       ks[r][d] = in ? kh[g] : 0.0f;
     }
     __syncthreads();
-#pragma unroll 4
-    for (int d = 0; d < DKT; ++d) {
-      float a[4], b[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = qs[ti * 4 + r][d];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) b[c] = ks[tj + 16 * c][d];
+    for (int e0 = 0; e0 < DKT; e0 += DSUM) {
+      float p[4][4];
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) s[r][c] = fmaf(a[r], b[c], s[r][c]);
+        for (int c = 0; c < 4; ++c) p[r][c] = 0.0f;
+#pragma unroll 4
+      for (int d = e0; d < e0 + DSUM; ++d) {
+        float a[4], b[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) a[r] = qs[ti * 4 + r][d];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) b[c] = ks[tj + 16 * c][d];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) p[r][c] = fmaf(a[r], b[c], p[r][c]);
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[r][c] += p[r][c];
     }
   }
   float* Ah = A + ((long long)bh * gridDim.x + chunk) * C * C;
@@ -727,7 +793,8 @@ scores_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int j = tj + 16 * c;
-      Ah[i * C + j] = i >= j ? s[r][c] * expf(cum[i] - cum[j]) : 0.0f;
+      Ah[i * C + j] =
+          i >= j ? s[r][c] * expf((float)(cum[i] - cum[j])) : 0.0f;
     }
   }
 }
@@ -751,8 +818,8 @@ state_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* As = vs + C * DVT;            // [C][LDA]
   float* qs = As + C * LDA;            // [C][LDT]
   float* kw = qs + C * LDT;            // [C][LDT]: k_j w_j
-  float* cum = kw + C * LDT;           // [C]
-  float* ecum = cum + C;               // [C]
+  double* cum = reinterpret_cast<double*>(kw + C * LDT);  // [C], f64
+  float* ecum = reinterpret_cast<float*>(cum + C);        // [C]
   float* w = ecum + C;                 // [C]
   float* etotal = w + C;               // [1]
 
@@ -811,18 +878,30 @@ state_kernel(const float* __restrict__ q, const float* __restrict__ k,
       __syncthreads();                 // the tiles are whole
       // the carried state's part of the outputs, from this tile's rows
       const int dmax = min(DKT, Dk - d0);
-      for (int d = 0; d < dmax; ++d) {
-        const float a0 = qs[tr * LDT + d], a1 = qs[(tr + 32) * LDT + d];
-        const float4 b =
-            *reinterpret_cast<const float4*>(S + (d0 + d) * DVT + 4 * tc);
-        inter[0][0] = fmaf(a0, b.x, inter[0][0]);
-        inter[0][1] = fmaf(a0, b.y, inter[0][1]);
-        inter[0][2] = fmaf(a0, b.z, inter[0][2]);
-        inter[0][3] = fmaf(a0, b.w, inter[0][3]);
-        inter[1][0] = fmaf(a1, b.x, inter[1][0]);
-        inter[1][1] = fmaf(a1, b.y, inter[1][1]);
-        inter[1][2] = fmaf(a1, b.z, inter[1][2]);
-        inter[1][3] = fmaf(a1, b.w, inter[1][3]);
+      for (int e0 = 0; e0 < dmax; e0 += DSUM) {
+        float p[2][4];
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) p[r][e] = 0.0f;
+        const int dend = min(e0 + DSUM, dmax);
+        for (int d = e0; d < dend; ++d) {
+          const float a0 = qs[tr * LDT + d], a1 = qs[(tr + 32) * LDT + d];
+          const float4 b =
+              *reinterpret_cast<const float4*>(S + (d0 + d) * DVT + 4 * tc);
+          p[0][0] = fmaf(a0, b.x, p[0][0]);
+          p[0][1] = fmaf(a0, b.y, p[0][1]);
+          p[0][2] = fmaf(a0, b.z, p[0][2]);
+          p[0][3] = fmaf(a0, b.w, p[0][3]);
+          p[1][0] = fmaf(a1, b.x, p[1][0]);
+          p[1][1] = fmaf(a1, b.y, p[1][1]);
+          p[1][2] = fmaf(a1, b.z, p[1][2]);
+          p[1][3] = fmaf(a1, b.w, p[1][3]);
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) inter[r][e] += p[r][e];
       }
       // this tile's rows of (K o w)^T V
       float u[2][4];
@@ -872,7 +951,7 @@ state_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 constexpr size_t state_bytes(int Dk) {
   return sizeof(float) * ((size_t)Dk * DVT + C * DVT + C * (C + 1) +
-                          2 * C * (DKT + 1) + 3 * C + 1);
+                          2 * C * (DKT + 1) + 4 * C + 1);   // cum is f64
 }
 
 int launch_f32(const float* q, const float* k, const float* v,

@@ -95,10 +95,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Raises:
         ValueError: shape, dtype, device or contiguity the kernel does not
-            take (on CUDA also D > 128).
+            take (on CUDA also D > 128); an input that requires grad
+            while grad mode is on, on every device (no backward).
         RuntimeError: the launch was refused.
     """
     _check(q, k, v, window)
+    _lib.refuse_grad("flash_attention",
+                     'flash_attention_plain, attn_impl="xla"', q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.dtype not in (torch.float32, torch.bfloat16):

@@ -116,10 +116,14 @@ def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Raises:
         ValueError: shape, dtype, device or contiguity the kernel does not
-            take (on CUDA also Dk > 1024).
+            take (on CUDA also Dk > 1024); an input that requires grad
+            while grad mode is on, on every device (no backward).
         RuntimeError: the launch was refused.
     """
     _check(q, k, v, log_decay)
+    _lib.refuse_grad("linear_attention",
+                     'linear_attention_plain, mixer_impl="ref"', q, k, v,
+                     log_decay)
     if q.device.type == "cpu":
         return linear_attention_plain(q, k, v, log_decay)
     if q.dtype not in (torch.float32, torch.bfloat16):

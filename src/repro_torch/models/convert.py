@@ -1,18 +1,19 @@
-"""Parameters from the reference package's tree, given as numpy arrays.
+"""Parameters from and to the reference package's tree of numpy arrays.
 
 The reference stacks its layers (zamba2's ``superblocks`` leaves are
 (n_super, attn_every, ...), a decoder's ``layers`` (L, ...), xLSTM's
 ``superblocks`` {"mlstm": (n_super, 7, ...), "slstm": (n_super, ...)},
 whisper's ``encoder_layers`` and ``layers`` (L, ...)) and the port keeps
-lists of per-layer dicts, so :func:`params_from_numpy` unstacks them;
-every other leaf is copied as it is. With the same values both packages
+lists of per-layer dicts, so :func:`params_from_numpy` unstacks them and
+:func:`params_to_numpy` stacks them back (a checkpoint holds the
+reference's layout); every other leaf is copied as it is. With the same values both packages
 compute the same function, which is how the tests hold the port against
 the reference. Nothing here imports the reference: the caller turns its
 arrays into numpy first (``jax.tree.map(np.asarray, params)``).
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Sequence
 
 import numpy as np
 import torch
@@ -75,6 +76,68 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, *,
                               for i in range(n_super)]
         out["tail_blocks"] = _stack(tree["tail_blocks"],
                                     cfg.num_layers - n_super * per, device)
+    else:
+        raise ValueError(f"unknown family {cfg.family!r}")
+    return out
+
+
+def _host(tree: Any) -> Any:
+    """numpy copies of a subtree's tensors (never views of them)."""
+    if isinstance(tree, dict):
+        return {k: _host(v) for k, v in tree.items()}
+    return tree.detach().to("cpu", copy=True).numpy()
+
+
+def _empty_like(block: Any) -> Any:
+    """A block's subtree with every leaf stacked zero times (zamba2's tail
+    when the layers divide into superblocks)."""
+    if isinstance(block, dict):
+        return {k: _empty_like(v) for k, v in block.items()}
+    return np.zeros((0, *block.shape), block.detach().cpu().numpy().dtype)
+
+
+def _stacked(layers: Sequence[Any]) -> Any:
+    """One subtree whose leaves stack the layers' leaves on a new first
+    axis (on the tensors' device, then one copy to the host)."""
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: _stacked([layer[k] for layer in layers]) for k in first}
+    if isinstance(first, list):
+        return _stacked([_stacked(layer) for layer in layers])
+    if isinstance(first, np.ndarray):
+        return np.stack(layers)
+    return torch.stack([t.detach() for t in layers]).cpu().numpy()
+
+
+def params_to_numpy(cfg: ModelConfig, params: dict) -> dict:
+    """The reference's numpy tree from the port's parameters: the inverse
+    of :func:`params_from_numpy` (the layer lists stacked back into the
+    reference's leaves).
+
+    Args:
+        cfg: the config the parameters were built for.
+        params: the port's parameters (or any tree of its structure, such
+            as AdamW's ``m`` and ``v``).
+
+    Returns:
+        A tree of fresh numpy arrays with the reference's keys and shapes.
+    """
+    stacked = {"layers", "encoder_layers", "superblocks", "tail_blocks"}
+    out = {k: _host(v) for k, v in params.items() if k not in stacked}
+    if cfg.family in ("dense", "moe", "vlm", "encdec"):
+        for key in ("layers", "encoder_layers"):
+            if key in params:
+                out[key] = _stacked(params[key])
+    elif cfg.family == "ssm":
+        sb = params["superblocks"]
+        out["superblocks"] = {
+            "mlstm": _stacked([s["mlstm"] for s in sb]),
+            "slstm": _stacked([s["slstm"] for s in sb])}
+    elif cfg.family == "hybrid":
+        out["superblocks"] = _stacked(params["superblocks"])
+        tail = params["tail_blocks"]
+        out["tail_blocks"] = (_stacked(tail) if tail else
+                              _empty_like(params["superblocks"][0][0]))
     else:
         raise ValueError(f"unknown family {cfg.family!r}")
     return out

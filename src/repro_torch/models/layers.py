@@ -8,7 +8,7 @@ reference, because it is part of the function: :func:`embed` gathers from
 a bf16 copy of the table, so the residual stream is bf16; :func:`dense`
 casts its kernel to the activations' dtype; :func:`rmsnorm` computes in
 f32 and returns the input's dtype (so does :func:`layernorm`);
-:func:`unembed` is f32.
+:func:`unembed` is f32. :func:`cross_entropy` is the training loss.
 """
 from __future__ import annotations
 
@@ -197,3 +197,30 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None,
+                  valid_vocab: Optional[int] = None) -> torch.Tensor:
+    """Mean token NLL in f32. logits: (..., Vp) f32; labels integer.
+
+    As the reference computes it: columns >= ``valid_vocab`` (padding) are
+    -inf, and the gold logit is a select-and-sum over the vocab dim (not a
+    gather); ``mask`` weights the tokens, and the mean is over its sum.
+    """
+    col = torch.arange(logits.shape[-1], device=logits.device)
+    if valid_vocab is not None and valid_vocab < logits.shape[-1]:
+        logits = logits.masked_fill(col >= valid_vocab, float("-inf"))
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.where(col == labels[..., None], logits,
+                       torch.zeros((), dtype=logits.dtype,
+                                   device=logits.device)).sum(dim=-1)
+    nll = logz - gold
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

@@ -2,6 +2,7 @@
 
     model = build_model(cfg)
     params = model.init(generator, device)
+    loss, aux = model.loss(params, batch)             # training forward
     logits, aux = model.forward(params, batch)        # full-sequence logits
     logits = model.prefill_logits(params, batch)      # last-pos logits
     cache = model.init_cache(batch, max_len)
@@ -11,10 +12,12 @@
 Families: dense (minicpm/qwen3/qwen1.5/h2o), moe (qwen3-moe/phi3.5-moe),
 vlm (internvl2), encdec (whisper), ssm (xlstm), hybrid (zamba2). The
 reference scans its layer stacks (``xscan``); here the stacks are Python
-lists of per-layer parameter dicts and a plain loop walks them. Every
-entry point runs on the parameters' device: ``cuda:0`` unless the caller
-initialises on the CPU. ``init`` takes ``dense_dtype`` to store the dense
-kernels rounded to bf16 for serving (the residual stream is bf16, so
+lists of per-layer parameter dicts and a plain loop walks them;
+``cfg.remat`` recomputes the blocks the reference wraps in
+``jax.checkpoint`` (``torch.utils.checkpoint``) when gradients are taken.
+Every entry point runs on the parameters' device: ``cuda:0`` unless the
+caller initialises on the CPU. ``init`` takes ``dense_dtype`` to store the
+dense kernels rounded to bf16 for serving (the residual stream is bf16, so
 ``dense`` casts them to bf16 anyway); norms, biases, routers, the
 recurrent sLSTM matrices and an untied ``lm_head`` stay f32.
 """
@@ -24,16 +27,18 @@ import dataclasses
 from typing import Any, Callable, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels import flash_attention_plain
+from ..tree import leaves
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from . import xlstm as xlstm_mod
-from .layers import (dense, embed, gelu_mlp, init_dense, init_embedding,
-                     init_gelu_mlp, init_layernorm, init_mlp, init_rmsnorm,
-                     layernorm, mlp, rmsnorm, rope_frequencies,
+from .layers import (cross_entropy, dense, embed, gelu_mlp, init_dense,
+                     init_embedding, init_gelu_mlp, init_layernorm, init_mlp,
+                     init_rmsnorm, layernorm, mlp, rmsnorm, rope_frequencies,
                      sinusoidal_positions, unembed)
 
 Params = Any
@@ -48,29 +53,48 @@ class Model:
     decode_step: Callable[..., tuple[torch.Tensor, Params]]
     prefill: Optional[Callable[..., Params]] = None
 
+    def loss(self, params: Params, batch: dict
+             ) -> tuple[torch.Tensor, dict]:
+        """The training loss: token cross-entropy over the valid vocab
+        plus 0.01 times the MoE aux loss, and its parts."""
+        logits, aux = self.forward(params, batch)
+        ce = cross_entropy(logits, batch["labels"], batch.get("mask"),
+                           valid_vocab=self.cfg.vocab_size)
+        total = ce + 0.01 * aux
+        return total, {"loss": total, "ce": ce, "aux": aux}
+
     def prefill_logits(self, params: Params, batch: dict) -> torch.Tensor:
         """Serving prefill: logits at the final position only."""
         logits, _ = self.forward(params, batch)
         return logits[:, -1, :]
 
 
-def _leaves(tree: Params):
-    """The tensors of a tree of dicts and lists."""
-    if isinstance(tree, torch.Tensor):
-        yield tree
-    elif isinstance(tree, (dict, list)):
-        for sub in (tree.values() if isinstance(tree, dict) else tree):
-            yield from _leaves(sub)
-
-
 def count_params(params: Params) -> int:
     """Number of parameter values in the tree."""
-    return sum(t.numel() for t in _leaves(params))
+    return sum(t.numel() for t in leaves(params))
 
 
 def param_bytes(params: Params) -> int:
     """Bytes the tree's tensors hold."""
-    return sum(t.numel() * t.element_size() for t in _leaves(params))
+    return sum(t.numel() * t.element_size() for t in leaves(params))
+
+
+def _maybe_remat(fn: Callable, enable: bool) -> Callable:
+    """The reference's ``jax.checkpoint`` of a block: while gradients are
+    taken, keep only the block's inputs and recompute its activations in
+    the backward pass (the blocks draw no random numbers). A call that
+    takes no gradient (serving) runs the block as it is."""
+    if not enable:
+        return fn
+
+    def run(*args):
+        if not (torch.is_grad_enabled() and any(
+                isinstance(t, torch.Tensor) and t.requires_grad
+                for t in leaves(args))):
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return run
 
 
 def _pad_vocab(cfg: ModelConfig) -> Optional[int]:
@@ -158,6 +182,20 @@ def _build_decoder_lm(cfg: ModelConfig) -> Model:
             x = torch.cat([ve, x[:, ve.shape[1]:, :]], dim=1)
         return x
 
+    def block(p, x, freqs):
+        x = x + attn.attention_train(
+            p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
+            rope_freqs=freqs, impl=cfg.attn_impl, **heads)
+        hn = rmsnorm(p["ln2"], x, cfg.norm_eps)
+        if moe:
+            h, a = moe_mod.moe_layer(
+                p["moe"], hn, num_experts=cfg.num_experts,
+                top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
+            return x + h, a
+        return x + mlp(p["mlp"], hn), None
+
+    block = _maybe_remat(block, cfg.remat)
+
     def forward(params, batch):
         """tokens (B, T) (and ``vision_embeds`` (B, Nv, d) for vlm) ->
         f32 logits (B, T, vocab, padded when tied) and the mean MoE aux
@@ -166,18 +204,9 @@ def _build_decoder_lm(cfg: ModelConfig) -> Model:
         freqs = rope(x.device)
         aux = torch.zeros((), device=x.device)
         for p in params["layers"]:
-            x = x + attn.attention_train(
-                p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
-                rope_freqs=freqs, impl=cfg.attn_impl, **heads)
-            hn = rmsnorm(p["ln2"], x, cfg.norm_eps)
+            x, a = block(p, x, freqs)
             if moe:
-                h, a = moe_mod.moe_layer(
-                    p["moe"], hn, num_experts=cfg.num_experts,
-                    top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
                 aux = aux + a
-            else:
-                h = mlp(p["mlp"], hn)
-            x = x + h
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return logits_of(params, x), aux / cfg.num_layers
 
@@ -257,16 +286,21 @@ def _build_encdec(cfg: ModelConfig) -> Model:
             "final_norm": ln(),
         }
 
+    def enc_block(p, x):
+        x = x + attn.attention_train(
+            p["attn"], layernorm(p["ln1"], x), rope_freqs=None,
+            causal=False, impl=cfg.attn_impl, **heads)
+        return x + gelu_mlp(p["mlp"], layernorm(p["ln2"], x))
+
+    enc_block = _maybe_remat(enc_block, cfg.remat)
+
     def encode(params, frames):
         """frames: (B, S_enc, d) stub embeddings from the conv frontend."""
         S = frames.shape[1]
         x = frames + sinusoidal_positions(S, cfg.d_model, frames.dtype,
                                           device=frames.device)[None]
         for p in params["encoder_layers"]:
-            x = x + attn.attention_train(
-                p["attn"], layernorm(p["ln1"], x), rope_freqs=None,
-                causal=False, impl=cfg.attn_impl, **heads)
-            x = x + gelu_mlp(p["mlp"], layernorm(p["ln2"], x))
+            x = enc_block(p, x)
         return layernorm(params["enc_norm"], x)
 
     def encoder_kv(p, enc):
@@ -284,6 +318,17 @@ def _build_encdec(cfg: ModelConfig) -> Model:
         return dense(p["wo"], out.transpose(1, 2).reshape(
             B, T, cfg.num_heads * hd))
 
+    def dec_block(p, x, enc):
+        x = x + attn.attention_train(
+            p["self_attn"], layernorm(p["ln1"], x), rope_freqs=None,
+            impl=cfg.attn_impl, **heads)
+        ek, ev = encoder_kv(p["cross_attn"], enc)
+        x = x + cross_attend(p["cross_attn"], layernorm(p["ln_x"], x),
+                             ek, ev)
+        return x + gelu_mlp(p["mlp"], layernorm(p["ln2"], x))
+
+    dec_block = _maybe_remat(dec_block, cfg.remat)
+
     def forward(params, batch):
         """tokens (B, T) and frames (B, S_enc, d) -> f32 logits (B, T,
         padded vocab) and a zero aux loss."""
@@ -293,13 +338,7 @@ def _build_encdec(cfg: ModelConfig) -> Model:
         x = x + sinusoidal_positions(tokens.shape[1], cfg.d_model, x.dtype,
                                      device=x.device)[None]
         for p in params["layers"]:
-            x = x + attn.attention_train(
-                p["self_attn"], layernorm(p["ln1"], x), rope_freqs=None,
-                impl=cfg.attn_impl, **heads)
-            ek, ev = encoder_kv(p["cross_attn"], enc)
-            x = x + cross_attend(p["cross_attn"], layernorm(p["ln_x"], x),
-                                 ek, ev)
-            x = x + gelu_mlp(p["mlp"], layernorm(p["ln2"], x))
+            x = dec_block(p, x, enc)
         x = layernorm(params["final_norm"], x)
         logits = unembed(params["embed"], x, pad_to=_pad_vocab(cfg))
         return logits, torch.zeros((), device=logits.device)
@@ -389,17 +428,24 @@ def _build_xlstm(cfg: ModelConfig) -> Model:
                 "superblocks": [superblock() for _ in range(n_super)],
                 "final_norm": init_rmsnorm(cfg.d_model, device)}
 
+    def superblock(sb, x):
+        for p in sb["mlstm"]:
+            x = x + xlstm_mod.mlstm_train(
+                p["mlstm"], rmsnorm(p["ln"], x, cfg.norm_eps),
+                num_heads=H, impl=cfg.mixer_impl)
+        s = sb["slstm"]
+        return x + xlstm_mod.slstm_train(
+            s["slstm"], rmsnorm(s["ln"], x, cfg.norm_eps), num_heads=H)
+
+    # remat at the superblock level, as the reference's: the mLSTM states
+    # are recomputed in the backward pass
+    superblock = _maybe_remat(superblock, cfg.remat)
+
     def forward(params, batch):
         """tokens (B, T) -> f32 logits (B, T, padded vocab), zero aux."""
         x = embed(params["embed"], batch["tokens"])
         for sb in params["superblocks"]:
-            for p in sb["mlstm"]:
-                x = x + xlstm_mod.mlstm_train(
-                    p["mlstm"], rmsnorm(p["ln"], x, cfg.norm_eps),
-                    num_heads=H, impl=cfg.mixer_impl)
-            s = sb["slstm"]
-            x = x + xlstm_mod.slstm_train(
-                s["slstm"], rmsnorm(s["ln"], x, cfg.norm_eps), num_heads=H)
+            x = superblock(sb, x)
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         logits = unembed(params["embed"], x, pad_to=_pad_vocab(cfg))
         return logits, torch.zeros((), device=logits.device)
@@ -494,12 +540,17 @@ def _build_zamba(cfg: ModelConfig) -> Model:
                 "tail_blocks": tail, "shared": shared,
                 "final_norm": init_rmsnorm(cfg.d_model, device)}
 
+    def mamba_block(p, x):
+        return x + ssm_mod.mamba2_train(
+            p["mamba"], rmsnorm(p["ln"], x, cfg.norm_eps),
+            d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim,
+            impl=cfg.mixer_impl)
+
+    mamba_block = _maybe_remat(mamba_block, cfg.remat)
+
     def mamba_blocks(x, blocks):
         for p in blocks:
-            x = x + ssm_mod.mamba2_train(
-                p["mamba"], rmsnorm(p["ln"], x, cfg.norm_eps),
-                d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim,
-                impl=cfg.mixer_impl)
+            x = mamba_block(p, x)
         return x
 
     def shared_attn_apply(shared, x):

@@ -609,6 +609,55 @@ def test_linear_attention_steep_decays_stay_finite(dev, dtype, dk, dv):
                                rtol=rtol, atol=atol)
 
 
+def _linear_attention_f64(q, k, v, log_decay):
+    """The plain version's sequential recurrence in f64 (the reference
+    value the f32 kernel and plain version are both held to)."""
+    qd, kd, vd = q.double(), k.double(), v.double()
+    decay = torch.exp(log_decay.double())
+    S = torch.zeros(q.shape[0], q.shape[2], v.shape[2], dtype=torch.float64,
+                    device=q.device)
+    out = torch.empty(*v.shape, dtype=torch.float64, device=q.device)
+    for t in range(q.shape[1]):
+        S = decay[:, t, None, None] * S + kd[:, t, :, None] * vd[:, t, None, :]
+        out[:, t] = torch.einsum("bk,bkv->bv", qd[:, t], S)
+    return out
+
+
+@pytest.mark.parametrize("dk,dv", [(64, 64), (1024, 1025)])
+def test_linear_attention_f32_unscaled_keys_against_f64(dev, dk, dv):
+    """Steep decays at unscaled keys (the inputs of
+    ``test_linear_attention_steep_decays_stay_finite`` before its keys are
+    scaled; at Dk 1024, q . k is about 32 and outputs reach the hundreds):
+    the f32 kernel (the chunk form, its decays exp(cum_i - cum_j) from a
+    chunk's prefix sums, which reach -256) and the f32 plain version (the
+    sequential recurrence) are both held to an f64 run of the recurrence,
+    and the kernel's largest error of an element, and of a row (relative
+    L2), must be within twice the plain version's. The two forms sum in
+    other orders, so either may be the closer one; decays formed from f32
+    prefix sums, or a dot product over the 1024 keys in one accumulator,
+    put the kernel 3-22x further."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    bh, t = 4, 256
+    q = torch.randn(bh, t, dk, generator=g, device=dev)
+    k = torch.randn(bh, t, dk, generator=g, device=dev)
+    v = torch.randn(bh, t, dv, generator=g, device=dev)
+    ld = -4.0 * torch.rand(bh, t, generator=g, device=dev)
+    exact = _linear_attention_f64(q, k, v, ld)
+    got = linear_attention(q, k, v, ld).double()
+    plain = linear_attention_plain(q, k, v, ld).double()
+
+    def errors(x):
+        diff = (x - exact).abs()
+        row = (x - exact).norm(dim=-1) / exact.norm(dim=-1)
+        return float(diff.max()), float(row.max())
+
+    (k_abs, k_row), (p_abs, p_row) = errors(got), errors(plain)
+    print(f"f32 Dk {dk} Dv {dv} vs f64: kernel max abs {k_abs:.3e}, row "
+          f"rel {k_row:.3e}; plain max abs {p_abs:.3e}, row rel "
+          f"{p_row:.3e}; max |out| {float(exact.abs().max()):.2f}")
+    assert k_abs <= 2 * p_abs and k_row <= 2 * p_row
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_linear_attention_wide_path_repeats_its_bits(dev, dtype):
     """Two launches on the same inputs give the same bits: the wide path
@@ -905,3 +954,84 @@ def test_family_forward_through_the_kernels(dev, monkeypatch, arch, dtype):
         torch.testing.assert_close(got, want, rtol=0, atol=2e-3)
     else:
         assert float((got - want).norm() / want.norm()) <= 0.1
+
+
+# -- training on the card ----------------------------------------------------
+
+def _reduced_trainer(params):
+    from repro_torch.data import DataPipeline
+    from repro_torch.hetero import HeteroTrainer, make_policy
+    from repro_torch.optim import AdamW
+
+    cfg = get_config("qwen3-0.6b").reduced()
+    pipe = DataPipeline(seed=5, global_batch=8, seq_len=16,
+                        vocab=cfg.vocab_size, num_shards=8)
+    return HeteroTrainer(build_model(cfg), params, optimizer=AdamW(lr=1e-3),
+                         policy=make_policy("static", {"A": 1.0, "B": 1.0}),
+                         pipeline=pipe, group_speeds={"A": 1.0, "B": 0.5},
+                         total_microbatches=8)
+
+
+def test_train_steps_on_card_match_the_cpu(dev, monkeypatch):
+    """Three steps of reduced qwen3-0.6b on cuda:0 and on the CPU from the
+    same parameters, in f32 (both ``embed`` f32): the card's f32 sums run
+    in another order, so losses agree within rtol 1e-5 and the parameters
+    after three AdamW steps within 1e-4 relative L2."""
+    from repro_torch.tree import leaves, tree_map
+
+    monkeypatch.setattr(model_mod, "embed", functools.partial(
+        model_mod.embed, dtype=torch.float32))
+    cfg = get_config("qwen3-0.6b").reduced()
+    cpu = build_model(cfg).init(torch.Generator().manual_seed(3), "cpu")
+    card = tree_map(lambda t: t.to(dev), cpu)
+    on_cpu, on_card = _reduced_trainer(cpu), _reduced_trainer(card)
+    want = [r.loss for r in on_cpu.run(3)]
+    got = [r.loss for r in on_card.run(3)]
+    assert on_card.device.type == "cuda"
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    for a, b in zip(leaves(on_card.params), leaves(on_cpu.params)):
+        assert float((a.cpu() - b).norm() / b.norm()) <= 1e-4
+
+
+def test_kernels_refuse_grad_on_card(dev):
+    """Inputs that require grad are refused on the card, as on the CPU; the
+    same inputs without grad mode launch the kernels."""
+    q = torch.randn(1, 2, 64, 64, device=dev, requires_grad=True)
+    with pytest.raises(ValueError, match="no backward"):
+        flash_attention(q, q, q)
+    a = torch.randn(2, 64, 32, device=dev, requires_grad=True)
+    ld = torch.zeros(2, 64, device=dev)
+    with pytest.raises(ValueError, match="no backward"):
+        linear_attention(a, a, a, ld)
+    before = (flash_attention.launches, linear_attention.launches)
+    with torch.no_grad():
+        flash_attention(q, q, q)
+        linear_attention(a, a, a, ld)
+    assert (flash_attention.launches, linear_attention.launches) == \
+        (before[0] + 1, before[1] + 1)
+
+
+def test_save_async_keeps_the_saved_values_on_card(dev, tmp_path):
+    """``save_async`` copies the card's tensors to the host before it
+    returns: an in-place AdamW step right after it does not reach the file
+    being written."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.optim import AdamW
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    params = {"w": torch.randn(1 << 24, generator=g, device=dev),
+              "b": [torch.randn(7, generator=g, device=dev)]}
+    saved = {"w": params["w"].cpu().numpy(),
+             "b": [params["b"][0].cpu().numpy()]}
+    opt = AdamW(lr=0.1)
+    state = opt.init(params)
+    ck = Checkpointer(str(tmp_path))
+    ck.save_async(1, params)
+    opt.update({"w": torch.ones_like(params["w"]),
+                "b": [torch.ones_like(params["b"][0])]}, state, params)
+    ck.wait()
+    step, got = ck.restore(saved)
+    assert step == 1
+    assert np.array_equal(got["w"], saved["w"])
+    assert np.array_equal(got["b"][0], saved["b"][0])
+    assert not np.array_equal(params["w"].cpu().numpy(), saved["w"])
