@@ -118,15 +118,16 @@ class Checkpointer:
         the shapes to check).
 
         Raises:
-            NotImplementedError: ``shardings`` was given: placing leaves on
-                a mesh waits for the port's mesh (ROADMAP queue 1 item 9).
+            NotImplementedError: ``shardings`` was given: the port's
+                programs run unpartitioned on one device, so there is no
+                mesh to place leaves on.
             FileNotFoundError: no checkpoint in the directory.
         """
         if shardings is not None:
             raise NotImplementedError(
                 "Checkpointer.restore(shardings=...) places leaves on a "
-                "device mesh, which the port does not have yet (ROADMAP "
-                "queue 1 item 9)")
+                "partitioned mesh; the port's programs run unpartitioned "
+                "on one device")
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")

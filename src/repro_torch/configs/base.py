@@ -9,8 +9,10 @@ the four assigned input-shape cells.
 `attn_impl` and `mixer_impl` keep the reference's values: "flash" and
 "pallas" select the hand kernels' wrappers (the CUDA kernel on CUDA
 tensors, the plain version on CPU tensors), "xla" and "ref" select the
-plain versions, and "chunked" (the reference's training path) is not
-ported yet.
+plain versions, and "chunked" the differentiable chunk-parallel forms in
+plain PyTorch (``models.attention.chunked_attention``,
+``kernels.chunked_linear_attention``), which the dry run traces full
+configs with.
 """
 from __future__ import annotations
 
@@ -54,8 +56,8 @@ class ModelConfig:
     norm_eps: float = 1e-6
     schedule: str = "cosine"              # "wsd" for minicpm
     # runtime impls
-    attn_impl: str = "xla"                # xla | flash
-    mixer_impl: str = "ref"               # ref | pallas (ssm/mlstm kernel)
+    attn_impl: str = "xla"                # xla | flash | chunked
+    mixer_impl: str = "ref"               # ref | pallas | chunked
     remat: bool = True
 
     @property

@@ -38,10 +38,17 @@ column) runs its last column in one warp of 16 columns, and its V rows,
 2050 bytes apart, load 2 bytes an element. f32 stays on the CUDA cores,
 per (head, 32-column Dv tile) with the (Dk, 32) state in shared memory,
 within 3e-4. Both repeat their bits from launch to launch.
+
+:func:`chunked_linear_attention` is the port of the reference's
+``ref.chunked_linear_attention``, the differentiable chunk-parallel form
+that training and the dry run take (``mixer_impl="chunked"``): plain
+PyTorch, no kernel, autograd through it.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from . import _lib
 
@@ -99,6 +106,87 @@ def linear_attention_plain(q: torch.Tensor, k: torch.Tensor,
         S = decay[:, t, None, None] * S + \
             kf[:, t, :, None] * vf[:, t, None, :]
         out[:, t] = torch.einsum("bk,bkv->bv", qf[:, t], S)
+    return out.to(q.dtype)
+
+
+def _chunk_step(S: torch.Tensor, qc: torch.Tensor, kc: torch.Tensor,
+                vc: torch.Tensor, ld: torch.Tensor, above: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One chunk of the chunk-parallel form: its outputs (intra-chunk
+    scores plus the carried state's read) and the state after it.
+
+    The decays come from prefix sums of ``ld`` kept in f64, and the
+    intra-chunk decay exp(cum_i - cum_j) is formed only for i >= j (the
+    rest is exp(-inf) = 0), as the CUDA kernels form it: the reference
+    forms it for every (i, j) and masks after the product, so under steep
+    decays its masked entries are inf and its gradient is inf * 0.
+    """
+    cum = torch.cumsum(ld.double(), dim=-1)                    # (BH, C)
+    total = cum[:, -1:]
+    diff = (cum[:, :, None] - cum[:, None, :]).float()
+    gamma = torch.exp(diff.masked_fill(above, float("-inf")))
+    a = torch.matmul(qc, kc.transpose(1, 2)) * gamma           # (BH, C, C)
+    intra = torch.matmul(a, vc)
+    inter = torch.matmul(qc * torch.exp(cum.float())[..., None], S)
+    k_dec = kc * torch.exp((total - cum).float())[..., None]
+    S = torch.exp(total.float())[..., None] * S + \
+        torch.matmul(k_dec.transpose(1, 2), vc)
+    return intra + inter, S
+
+
+def chunked_linear_attention(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, log_decay: torch.Tensor, *,
+                             chunk: int = 128,
+                             remat_chunks: bool = True) -> torch.Tensor:
+    """The chunk-parallel form of the recurrence in plain PyTorch,
+    differentiable: training's path through the SSD and mLSTM mixers.
+
+    T is padded with zeros to a multiple of ``chunk`` and the output
+    cropped back. Each chunk computes in f32 and carries a (BH, Dk, Dv)
+    f32 state to the next. ``remat_chunks`` recomputes each chunk in the
+    backward pass (``torch.utils.checkpoint``) when a gradient is taken,
+    so only the carried states are kept: without it the mLSTM's
+    1024 x 1025 memories keep T / chunk f32 states a head.
+
+    Args:
+        q, k: (BH, T, Dk).
+        v: (BH, T, Dv).
+        log_decay: (BH, T), entries <= 0.
+        chunk: steps per chunk.
+        remat_chunks: recompute each chunk in the backward pass.
+
+    Returns:
+        (BH, T, Dv) in q's dtype.
+    """
+    _check(q, k, v, log_decay)
+    BH, T, Dk = q.shape
+    Dv = v.shape[-1]
+    pad = (-T) % chunk
+    if pad:
+        q, k, v = (F.pad(a, (0, 0, 0, pad)) for a in (q, k, v))
+        log_decay = F.pad(log_decay, (0, pad))
+    nc = q.shape[1] // chunk
+
+    def chunks(a):
+        return a.float().reshape(BH, nc, chunk, a.shape[-1]).unbind(1)
+
+    qs, ks, vs = chunks(q), chunks(k), chunks(v)
+    lds = log_decay.float().reshape(BH, nc, chunk).unbind(1)
+    above = torch.ones(chunk, chunk, dtype=torch.bool,
+                       device=q.device).triu(1)                 # j > i
+    remat = remat_chunks and torch.is_grad_enabled() and any(
+        a.requires_grad for a in (q, k, v, log_decay))
+    S = torch.zeros(BH, Dk, Dv, dtype=torch.float32, device=q.device)
+    outs = []
+    for c in range(nc):
+        args = (S, qs[c], ks[c], vs[c], lds[c], above)
+        if remat:
+            o, S = checkpoint(_chunk_step, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            o, S = _chunk_step(*args)
+        outs.append(o)
+    out = torch.cat(outs, dim=1)[:, :T]
     return out.to(q.dtype)
 
 

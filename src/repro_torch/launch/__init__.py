@@ -1,2 +1,3 @@
-"""Entry points: LM serving (``python -m repro_torch.launch.serve``) and
-training (``python -m repro_torch.launch.train``)."""
+"""Entry points: LM serving (``python -m repro_torch.launch.serve``),
+training (``python -m repro_torch.launch.train``) and the dry run
+(``python -m repro_torch.launch.dryrun``)."""

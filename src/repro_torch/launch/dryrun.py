@@ -1,0 +1,292 @@
+"""Dry run: every (arch × shape × mesh) cell of the full configs, without
+running the model.
+
+For each cell the step is traced at full width and at the cell's global
+shapes on the meta device (no memory, no device work): a train step
+(``value_and_grad`` over the ``GRAD_ACCUM`` microbatches, clipping, AdamW's
+update), a prefill, or a decode step against a ``seq_len``-deep cache, with
+the chunked attention and mixers and remat, as the reference lowers them.
+A trace that completes is the port's proof that the cell is coherent, and
+``FlopCounterMode`` counts its FLOPs (``traced_flops``; ``trace_seconds``
+is its wall time). Beside it, the reference's analytic accounting, on the
+chosen mesh's axis sizes: the parameter count, the per-device state under
+the sharding rules, the roofline's FLOPs and bytes and the model FLOPs.
+The port has no partitioning compiler and the card is one device, so
+there are no collective bytes (``coll_source`` says so) and no compiled
+memory footprint (``hbm_per_dev`` is None).
+
+Meshes: ``single`` (16 x 16) and ``multi`` (2 x 16 x 16), the reference's
+accounting layouts, and ``card``, the (1, 1) layout of one card. All three
+are axis names and sizes only: the trace runs on the meta device, and the
+accounting reads nothing else of a mesh.
+
+Usage:
+  python -m repro_torch.launch.dryrun --arch qwen3-0.6b --shape train_4k --mesh card
+  python -m repro_torch.launch.dryrun --all --out results/dryrun
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import time
+from typing import Any, Optional
+
+import torch
+from torch.utils.flop_counter import FlopCounterMode
+
+from ..configs import ARCH_IDS, SHAPES, get_config
+from ..configs.base import ModelConfig, ShapeConfig
+from ..models import (build_model, cache_specs, count_params, param_specs,
+                      reference_layout)
+from ..models.convert import META
+from ..models.sharding import axis_sizes, batch_spec, set_fsdp, use_mesh
+from ..optim import AdamW, accumulate_grads, clip_by_global_norm
+from ..roofline import Roofline, cell_bytes, cell_flops
+from ..tree import leaves_with_path
+from .mesh import MeshLayout, make_production_mesh
+
+MESHES = ("single", "multi", "card")
+COLL_SOURCE = "none (unpartitioned trace)"
+
+
+def sharded_bytes(structs: Any, specs: Any, mesh: Any) -> float:
+    """Per-device bytes of a tree of (meta) tensors under ``specs``, its
+    leaves summed in the tree's order (as the reference sums them)."""
+    sizes = axis_sizes(mesh)
+    total = 0.0
+    for path, leaf in leaves_with_path(structs):
+        spec = specs
+        for key in path:
+            spec = spec[key]
+        shards = 1
+        for entry in spec:
+            if entry is None:
+                continue
+            for ax in (entry if isinstance(entry, tuple) else (entry,)):
+                shards *= sizes.get(ax, 1)
+        total += leaf.numel() * leaf.element_size() / shards
+    return total
+
+
+def make_batch_specs(cfg: ModelConfig, shape: ShapeConfig
+                     ) -> tuple[dict, dict]:
+    """Meta tensors and their specs (under the mesh in force) for one
+    input shape."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def sh(arr_shape, dtype):
+        return torch.empty(arr_shape, dtype=dtype, device=META)
+
+    structs: dict = {}
+    if shape.kind in ("train", "prefill"):
+        structs["tokens"] = sh((B, S), torch.int32)
+        if shape.kind == "train":
+            structs["labels"] = sh((B, S), torch.int32)
+        if cfg.family == "encdec":
+            structs["frames"] = sh((B, cfg.encoder_seq, cfg.d_model),
+                                   torch.bfloat16)
+        if cfg.family == "vlm":
+            structs["vision_embeds"] = sh((B, cfg.vision_tokens,
+                                           cfg.d_model), torch.float32)
+    else:  # decode: one new token against a seq_len-deep cache
+        structs["tokens"] = sh((B, 1), torch.int32)
+    return structs, {k: batch_spec(v.shape) for k, v in structs.items()}
+
+
+# microbatch count per heavy train cell (activation stash / accum)
+GRAD_ACCUM: dict[tuple[str, str], int] = {
+    ("qwen1.5-110b", "train_4k"): 2,
+    ("qwen3-moe-235b-a22b", "train_4k"): 2,
+    ("phi3.5-moe-42b-a6.6b", "train_4k"): 2,
+    ("minicpm-2b", "train_4k"): 2,
+}
+
+
+def model_flops_for(cfg: ModelConfig, shape: ShapeConfig,
+                    n_params: int) -> float:
+    n_active = cfg.n_active_params() if cfg.family == "moe" else n_params
+    if shape.kind == "train":
+        tokens = shape.global_batch * shape.seq_len
+        return 6.0 * n_active * tokens
+    if shape.kind == "prefill":
+        tokens = shape.global_batch * shape.seq_len
+        return 2.0 * n_active * tokens
+    return 2.0 * n_active * shape.global_batch      # decode: 1 token/row
+
+
+def traced_flops(model, params: Any, batch: dict, shape: ShapeConfig,
+                 accum: int = 1, cache: Optional[Any] = None) -> float:
+    """FLOPs of one step traced on the tensors' device (the meta device in
+    the dry run): train (``accum`` microbatches, clipping, AdamW), prefill,
+    or one decode step against ``cache``."""
+    with FlopCounterMode(display=False) as counter:
+        if shape.kind == "train":
+            optimizer = AdamW(lr=1e-4)
+            state = optimizer.init(params)
+            size = shape.global_batch // accum
+            micro = [{k: v[i * size:(i + 1) * size]
+                      for k, v in batch.items()} for i in range(accum)]
+            _, grads = accumulate_grads(model.loss, params, micro)
+            grads, _ = clip_by_global_norm(grads, 1.0)
+            optimizer.update(grads, state, params)
+        else:
+            with torch.no_grad():
+                if shape.kind == "prefill":
+                    model.prefill_logits(params, batch)
+                else:
+                    model.decode_step(params, batch["tokens"], cache)
+    return float(counter.get_total_flops())
+
+
+def account(model, params: Any, shape: ShapeConfig, mesh: Any, *,
+            mesh_name: str, cache: Optional[Any] = None,
+            traced: float = 0.0) -> tuple[Roofline, float]:
+    """The reference's analytic accounting of one cell on ``mesh``'s axis
+    sizes: the roofline (no collective bytes: the port's program is
+    unpartitioned) and the per-device bytes of the sharded state (the
+    parameters, with AdamW's m and v for train, with ``cache`` for
+    decode).
+
+    Args:
+        model: the model of the cell's config.
+        params: its parameters, any device (meta in the dry run).
+        shape: the cell's shape.
+        mesh: a ``DeviceMesh`` or ``MeshLayout``.
+        mesh_name: the name the roofline reports.
+        cache: the decode cache (decode cells only).
+        traced: the FLOPs counted in a trace of the step.
+
+    Returns:
+        The roofline and the state's bytes a device.
+    """
+    cfg = model.cfg
+    sizes = axis_sizes(mesh)
+    chips = mesh.size()
+    n_params = count_params(params)
+    with use_mesh(mesh):
+        p_struct = reference_layout(params)
+        param_bytes_dev = sharded_bytes(p_struct, param_specs(p_struct),
+                                        mesh)
+        cache_bytes_dev = 0.0
+        if shape.kind == "train":
+            state_bytes_dev = 3 * param_bytes_dev      # + m + v
+        elif shape.kind == "decode":
+            c_struct = reference_layout(cache)
+            cache_bytes_dev = sharded_bytes(c_struct, cache_specs(c_struct),
+                                            mesh)
+            state_bytes_dev = param_bytes_dev + cache_bytes_dev
+        else:
+            state_bytes_dev = param_bytes_dev
+    roof = Roofline(
+        arch=cfg.name, shape=shape.name, mesh=mesh_name, chips=chips,
+        flops_per_dev=cell_flops(cfg, shape)["total_flops"] / chips,
+        bytes_per_dev=cell_bytes(cfg, shape,
+                                 param_bytes_per_dev=param_bytes_dev,
+                                 cache_bytes_per_dev=cache_bytes_dev,
+                                 chips=chips,
+                                 dp_shards=chips // sizes["model"]),
+        coll_bytes_per_dev=0.0, coll_breakdown={},
+        model_flops=model_flops_for(cfg, shape, n_params),
+        traced_flops=traced, hbm_per_dev=None)
+    return roof, state_bytes_dev
+
+
+def layout_for(mesh: str) -> MeshLayout:
+    """The axis names and sizes of ``mesh``: single, multi or card."""
+    if mesh == "card":
+        return MeshLayout(("data", "model"), (1, 1))
+    return make_production_mesh(multi_pod=mesh == "multi")
+
+
+def run_cell(arch: str, shape_name: str, mesh: str = "single",
+             verbose: bool = True) -> dict:
+    """Trace one cell and account for it on ``mesh`` (single, multi or
+    card). Returns the reference's fields, ``compile_seconds`` as
+    ``trace_seconds`` and ``xla_raw_flops`` as ``traced_flops``."""
+    if mesh not in MESHES:
+        raise ValueError(f"mesh {mesh!r}: one of {MESHES}")
+    cfg = get_config(arch)
+    shape = SHAPES[shape_name]
+    if shape_name == "long_500k" and not cfg.subquadratic:
+        return {"arch": arch, "shape": shape_name, "mesh": mesh,
+                "status": "skipped",
+                "reason": "full quadratic attention; see DESIGN.md §5"}
+
+    # full configs trace with chunked attention (O(T·c) memory), the
+    # chunked SSD/mLSTM mixer (the per-timestep form would keep the
+    # matrix memory of every step) and remat
+    cfg = dataclasses.replace(cfg, attn_impl="chunked",
+                              mixer_impl="chunked", remat=True)
+    # FSDP (ZeRO-3) for configs whose f32 params + Adam state exceed
+    # 8e9 bytes a device under 16-way model sharding alone: the
+    # reference's layout rule, kept so that the specs compare
+    set_fsdp(cfg.n_params() * 12 / 16 > 8e9)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator().manual_seed(0), META)
+    batch, _ = make_batch_specs(cfg, shape)
+    cache = None
+    if shape.kind == "decode":
+        cache = model.init_cache(shape.global_batch, shape.seq_len,
+                                 device=META)
+    traced = traced_flops(model, params, batch, shape,
+                          GRAD_ACCUM.get((arch, shape_name), 1), cache)
+    trace_s = time.perf_counter() - t0
+    roof, state_bytes_dev = account(model, params, shape, layout_for(mesh),
+                                    mesh_name=mesh, cache=cache,
+                                    traced=traced)
+    out = {"status": "ok", "n_params": count_params(params),
+           "trace_seconds": round(trace_s, 1),
+           "state_bytes_per_dev": state_bytes_dev,
+           "memory_analysis": {}, "coll_source": COLL_SOURCE,
+           **roof.to_dict()}
+    if verbose:
+        print(f"[{arch} × {shape_name} × {mesh}] "
+              f"trace={out['trace_seconds']}s "
+              f"t_comp={roof.t_compute*1e3:.1f}ms "
+              f"t_mem={roof.t_memory*1e3:.1f}ms "
+              f"t_coll=not available "
+              f"bound={roof.bottleneck} "
+              f"frac={roof.roofline_frac:.3f} "
+              f"state/dev={state_bytes_dev/2**30:.2f}GiB "
+              f"traced/analytic flops="
+              f"{traced / (roof.flops_per_dev * roof.chips):.3f}")
+    return out
+
+
+def main(argv: Optional[list[str]] = None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCH_IDS)
+    ap.add_argument("--shape", choices=list(SHAPES))
+    ap.add_argument("--mesh", choices=list(MESHES), default="single")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--out", default="results/dryrun")
+    args = ap.parse_args(argv)
+
+    os.makedirs(args.out, exist_ok=True)
+    cells = []
+    if args.all:
+        for arch in ARCH_IDS:
+            for shape in SHAPES:
+                for mesh in ("single", "multi"):
+                    cells.append((arch, shape, mesh))
+    else:
+        if not args.arch or not args.shape:
+            ap.error("--arch and --shape required without --all")
+        cells = [(args.arch, args.shape, args.mesh)]
+
+    for arch, shape, mesh in cells:
+        key = f"{arch}__{shape}__{mesh}".replace("/", "_")
+        path = os.path.join(args.out, key + ".json")
+        if os.path.exists(path):
+            print(f"[skip existing] {key}")
+            continue
+        result = run_cell(arch, shape, mesh)
+        with open(path, "w") as f:
+            json.dump(result, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

@@ -7,8 +7,9 @@ checkpoints in ``--ckpt-dir``:
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
         --steps 100 --policy hguided --ckpt-dir /tmp/ckpt --device cpu
 
-``--dry-run`` (the full config lowered on a production mesh) waits for the
-port's mesh and dry run (ROADMAP queue 1 item 9).
+``--dry-run`` traces the full config of ``--arch`` at ``--shape`` on the
+meta device and accounts for it on the production mesh (``--multi-pod``
+for the two-pod one): ``launch/dryrun.py``'s ``run_cell``.
 """
 from __future__ import annotations
 
@@ -36,8 +37,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--groups", default="podA:1.0,podB:0.6,podC:0.3",
                     help="name:speed pairs for the device groups")
     ap.add_argument("--dry-run", action="store_true",
-                    help="full config on the production mesh, "
-                         "lower+compile only")
+                    help="full config on the production mesh, traced "
+                         "on the meta device only")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--device", default="cuda:0",
                     help="where the model trains (cuda:0 by default; cpu "
@@ -47,14 +48,15 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[list[str]] = None) -> dict:
     """Parse ``argv``, train, print the reference's lines; returns the
-    supervisor's report and the step the run started from."""
+    supervisor's report and the step the run started from (with
+    ``--dry-run``, the cell's dry-run record)."""
     ap = _parser()
     args = ap.parse_args(argv)
 
     if args.dry_run:
-        raise NotImplementedError(
-            "--dry-run lowers the full config on a device mesh, which waits "
-            "for the port's mesh and dry run (ROADMAP queue 1 item 9)")
+        from .dryrun import run_cell
+        return run_cell(args.arch, args.shape,
+                        "multi" if args.multi_pod else "single")
     device = torch.device(args.device)
     if device.type == "cuda" and (not torch.cuda.is_available() or (
             device.index or 0) >= torch.cuda.device_count()):

@@ -3,11 +3,12 @@ ring-buffer KV cache for decode.
 
 Training/prefill (:func:`attention_train`) goes through the flash kernel's
 wrapper (``impl="flash"``: the CUDA kernel on CUDA tensors, its plain
-version on CPU tensors) or the plain version itself (``impl="xla"``).
-Decode (:func:`attention_decode`) always uses the einsum path against the
-cache, as the reference does (one query position; no kernel). The
-reference's ``chunked_attention`` is its training path and is not ported
-yet.
+version on CPU tensors), the plain version itself (``impl="xla"``), or
+:func:`chunked_attention` (``impl="chunked"``: query chunks of 512 against
+the whole key sequence, differentiable, never the (T, T) logits at once;
+what the dry run traces full configs with). Decode
+(:func:`attention_decode`) always uses the einsum path against the cache,
+as the reference does (one query position; no kernel).
 """
 from __future__ import annotations
 
@@ -63,6 +64,52 @@ def _project_qkv(p: Params, x: torch.Tensor, num_heads: int,
     return q.contiguous(), k.contiguous(), v.contiguous()
 
 
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: Optional[int] = None,
+                      chunk: int = 512) -> torch.Tensor:
+    """Attention one chunk of queries at a time, in plain PyTorch (the
+    reference's ``chunked_attention``): each chunk's (B, Hq, chunk, T) f32
+    logits against the whole of K and V in f32, masked, softmaxed and
+    applied, so memory is O(T * chunk). A T that ``chunk`` does not divide
+    runs as one chunk. GQA repeats each kv head for its group of q heads
+    (kv-major, as ``jnp.repeat``).
+
+    Args:
+        q: (B, Hq, T, D).
+        k, v: (B, Hkv, T, D), Hkv dividing Hq.
+        causal: mask keys after the query.
+        window: mask keys ``window`` or more steps back.
+        chunk: queries per chunk.
+
+    Returns:
+        (B, Hq, T, D) in q's dtype.
+    """
+    B, Hq, T, D = q.shape
+    Hkv = k.shape[1]
+    if Hkv != Hq:
+        k = k.repeat_interleave(Hq // Hkv, dim=1)
+        v = v.repeat_interleave(Hq // Hkv, dim=1)
+    if T % chunk:
+        chunk = T
+    kf, vf = k.float(), v.float()
+    k_idx = torch.arange(T, device=q.device)
+    outs = []
+    for start in range(0, T, chunk):
+        qf = q[:, :, start:start + chunk].float() * D ** -0.5
+        logits = torch.matmul(qf, kf.transpose(-1, -2))
+        q_idx = start + torch.arange(chunk, device=q.device)
+        age = q_idx[:, None] - k_idx[None, :]
+        mask = None
+        if causal:
+            mask = age >= 0
+        if window is not None:
+            mask = age < window if mask is None else mask & (age < window)
+        if mask is not None:
+            logits = logits.masked_fill(~mask, float("-inf"))
+        outs.append(torch.matmul(torch.softmax(logits, dim=-1), vf))
+    return torch.cat(outs, dim=2).to(q.dtype)
+
+
 def attention_train(p: Params, x: torch.Tensor, *, num_heads: int,
                     num_kv_heads: int, head_dim: int,
                     rope_freqs: Optional[torch.Tensor],
@@ -78,12 +125,10 @@ def attention_train(p: Params, x: torch.Tensor, *, num_heads: int,
     elif impl == "xla":
         out = flash_attention_plain(q, k, v, causal=causal, window=window)
     elif impl == "chunked":
-        raise NotImplementedError(
-            "attn_impl='chunked' is the reference's training path; it waits "
-            "for the training slice (ROADMAP queue 1 item 8)")
+        out = chunked_attention(q, k, v, causal=causal, window=window)
     else:
-        raise ValueError(f"unknown attn_impl {impl!r}; the port serves "
-                         f"'flash' and 'xla'")
+        raise ValueError(f"unknown attn_impl {impl!r}; the port has "
+                         f"'flash', 'xla' and 'chunked'")
     out = out.transpose(1, 2).reshape(B, T, num_heads * head_dim)
     return dense(p["wo"], out)
 

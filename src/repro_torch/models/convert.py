@@ -10,6 +10,9 @@ reference's layout); every other leaf is copied as it is. With the same values b
 compute the same function, which is how the tests hold the port against
 the reference. Nothing here imports the reference: the caller turns its
 arrays into numpy first (``jax.tree.map(np.asarray, params)``).
+:func:`reference_layout` gives the same stacked layout as shapes only
+(meta tensors), for parameters and caches alike: what the sharding rules
+and the dry run's byte counts read.
 """
 from __future__ import annotations
 
@@ -141,3 +144,53 @@ def params_to_numpy(cfg: ModelConfig, params: dict) -> dict:
     else:
         raise ValueError(f"unknown family {cfg.family!r}")
     return out
+
+
+META = torch.device("meta")
+
+
+def _meta_stack(items: list, template: Any = None) -> Any:
+    """Leaves of ``items`` stacked on a new first dim, as meta tensors;
+    ``template`` gives the leaves of a stack of zero items."""
+    first = items[0] if items else template
+    if isinstance(first, dict):
+        return {k: _meta_stack([i[k] for i in items], first[k])
+                for k in first}
+    return torch.empty((len(items), *first.shape), dtype=first.dtype,
+                       device=META)
+
+
+def _innermost(items: list) -> Any:
+    while isinstance(items, list):
+        items = items[0]
+    return items
+
+
+def reference_layout(tree: Any) -> Any:
+    """The reference's layout of a port tree, shapes and dtypes only.
+
+    Lists of layers stack into leaves with a leading dim (lists of lists,
+    zamba2's superblocks and xLSTM's mLSTM blocks, into two), a cache's
+    ``len`` (a Python int) becomes an int32 scalar as the reference holds
+    it, and every tensor becomes a meta tensor of its shape and dtype. An
+    empty list (zamba2's tail when its layers divide into superblocks)
+    stacks zero of the blocks its sibling list of superblocks holds.
+
+    Args:
+        tree: the port's parameters or cache (any device, meta included).
+
+    Returns:
+        A tree of meta tensors with the reference's keys and shapes.
+    """
+    if isinstance(tree, dict):
+        siblings = [v for v in tree.values()
+                    if isinstance(v, list) and v and isinstance(v[0], list)]
+        return {k: (_meta_stack([], reference_layout(_innermost(siblings)))
+                    if isinstance(v, list) and not v
+                    else reference_layout(v))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return _meta_stack([reference_layout(t) for t in tree])
+    if isinstance(tree, int):
+        return torch.empty((), dtype=torch.int32, device=META)
+    return torch.empty(tree.shape, dtype=tree.dtype, device=META)

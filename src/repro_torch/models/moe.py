@@ -45,6 +45,15 @@ def init_moe(generator: torch.Generator, d_model: int, moe_d_ff: int,
     }
 
 
+def _counts(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """How often each of 0..n-1 occurs in ``idx``: ``torch.bincount`` with
+    ``minlength=n`` for indices below n, as a scatter-add of ones, whose
+    output shape does not depend on the data (so it also runs on the meta
+    device, which the dry run traces on)."""
+    return torch.zeros(n, dtype=torch.int64, device=idx.device).scatter_add_(
+        0, idx, torch.ones_like(idx))
+
+
 def route(p: Params, xf: torch.Tensor, *, num_experts: int, top_k: int,
           capacity_factor: float) -> dict:
     """The dispatch of (N, d) tokens.
@@ -62,8 +71,7 @@ def route(p: Params, xf: torch.Tensor, *, num_experts: int, top_k: int,
         gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
 
     # load-balancing auxiliary loss (Switch-style)
-    density = torch.bincount(expert_idx[:, 0], minlength=num_experts
-                             ).float() / N
+    density = _counts(expert_idx[:, 0], num_experts).float() / N
     aux = num_experts * torch.sum(density * probs.mean(dim=0))
 
     capacity = max(1, int(capacity_factor * N * top_k / num_experts))
@@ -71,7 +79,7 @@ def route(p: Params, xf: torch.Tensor, *, num_experts: int, top_k: int,
     flat_token = torch.arange(N, device=xf.device).repeat_interleave(top_k)
     order = torch.argsort(flat_expert, stable=True)
     sorted_expert = flat_expert[order]
-    counts = torch.bincount(sorted_expert, minlength=num_experts)
+    counts = _counts(sorted_expert, num_experts)
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(N * top_k, device=xf.device) - starts[sorted_expert]
     keep = rank < capacity

@@ -6,9 +6,11 @@ Scalar-decay state space duality: per head h with state (d_state x d_head),
     y_t     = C_t . S_t + D_h * x_t
 Training/prefill (:func:`mamba2_train`) runs the recurrence through the
 linear-attention kernel's wrapper (``impl="pallas"``: the CUDA kernel on
-CUDA tensors, its plain version on CPU tensors) or the plain version itself
-(``impl="ref"``). Decode (:func:`mamba2_decode`) updates the (H, d_state,
-d_head) f32 state, O(1) per token. The depthwise causal conv (width 4)
+CUDA tensors, its plain version on CPU tensors), the plain version itself
+(``impl="ref"``), or the differentiable chunk-parallel form
+(``impl="chunked"``, the training and dry-run path). Decode
+(:func:`mamba2_decode`) updates the (H, d_state, d_head) f32 state, O(1)
+per token. The depthwise causal conv (width 4)
 before the SSD follows Mamba-2; n_groups = 1 (B and C shared by the heads).
 A_log, dt_bias, D and the norm scale are used in f32.
 """
@@ -17,7 +19,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..kernels import linear_attention, linear_attention_plain
+from ..kernels import (chunked_linear_attention, linear_attention,
+                       linear_attention_plain)
 from .layers import (_normal, dense, init_dense, init_rmsnorm, rmsnorm,
                      silu, softplus)
 
@@ -104,12 +107,10 @@ def mamba2_train(p: Params, x: torch.Tensor, *, d_state: int,
     elif impl == "ref":
         y = linear_attention_plain(hm(q), hm(k), hm(xh), ld)
     elif impl == "chunked":
-        raise NotImplementedError(
-            "mixer_impl='chunked' is the reference's training path; it "
-            "waits for the training slice (ROADMAP queue 1 item 8)")
+        y = chunked_linear_attention(hm(q), hm(k), hm(xh), ld)
     else:
-        raise ValueError(f"unknown mixer_impl {impl!r}; the port serves "
-                         f"'pallas' and 'ref'")
+        raise ValueError(f"unknown mixer_impl {impl!r}; the port has "
+                         f"'pallas', 'ref' and 'chunked'")
     y = y.reshape(Bsz, heads, T, head_dim).transpose(1, 2)       # (B,T,H,D)
     y = y + p["D"].to(y.dtype)[None, None, :, None] * xh
     y = y.reshape(Bsz, T, d_inner)

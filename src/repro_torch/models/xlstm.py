@@ -7,11 +7,12 @@ mLSTM is a gated linear-attention recurrence:
     h_t = (q_t C_t) / max(|q_t n_t|, 1)
 Training/prefill (:func:`mlstm_train`) runs it through the
 linear-attention kernel's wrapper (``impl="pallas"``: the CUDA kernel on
-CUDA tensors, its plain version on CPU tensors) or the plain version
-itself (``impl="ref"``), with the input gate folded into k and a column
-of ones appended to v, so that one pass gives the numerator and the
-normaliser: at xlstm-1.3b's widths the kernel sees Dk = 1024 and
-Dv = 1025. Gates use sigmoid, as the reference does. Decode
+CUDA tensors, its plain version on CPU tensors), the plain version itself
+(``impl="ref"``) or the differentiable chunk-parallel form
+(``impl="chunked"``, the training and dry-run path), each with the input
+gate folded into k and a column of ones appended to v, so that one pass
+gives the numerator and the normaliser: at xlstm-1.3b's widths the
+recurrence sees Dk = 1024 and Dv = 1025. Gates use sigmoid, as the reference does. Decode
 (:func:`mlstm_decode`) updates the (H, hd, hd) f32 memory, O(1) a token.
 
 sLSTM keeps per-head scalar memories with block-diagonal recurrent mixing
@@ -22,7 +23,8 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels import linear_attention, linear_attention_plain
+from ..kernels import (chunked_linear_attention, linear_attention,
+                       linear_attention_plain)
 from .layers import (_normal, dense, init_dense, init_rmsnorm, rmsnorm,
                      sigmoid, silu, softplus)
 
@@ -86,9 +88,11 @@ def mlstm_train(p: Params, x: torch.Tensor, *, num_heads: int,
         out = linear_attention(hm(q), hm(k_g), hm(v_aug), ld)
     elif impl == "ref":
         out = linear_attention_plain(hm(q), hm(k_g), hm(v_aug), ld)
+    elif impl == "chunked":
+        out = chunked_linear_attention(hm(q), hm(k_g), hm(v_aug), ld)
     else:
-        raise ValueError(f"mixer_impl {impl!r}: the port's mLSTM serves "
-                         f"'pallas' and 'ref'")
+        raise ValueError(f"unknown mixer_impl {impl!r}; the port has "
+                         f"'pallas', 'ref' and 'chunked'")
     num, den = out[..., :hd], out[..., hd:]
     h = num / torch.clamp(torch.abs(den), min=1.0)
     h = h.reshape(B, num_heads, T, hd).transpose(1, 2).reshape(B, T, d_inner)

@@ -1,0 +1,148 @@
+"""Three-term roofline of one dry-run cell, on one NVIDIA H100 80GB HBM3
+(SXM):
+
+    compute term    = FLOPs_per_device / peak_FLOP/s
+    memory term     = HBM_bytes_per_device / HBM_bw
+    collective term = collective_bytes_per_device / link_bw
+
+FLOPs and bytes come from the analytic accounting in ``flops.py``; the
+FLOPs ``FlopCounterMode`` counts in a trace of the step ride along as
+``traced_flops``. :func:`collective_bytes` reads the per-device collective
+bytes of a partitioned program's HLO text (the reference's parser: result
+shapes of every all-gather / all-reduce / reduce-scatter / all-to-all /
+collective-permute, times the trip counts of the ``xscan[N]`` loops
+around them). The port traces an unpartitioned program, so its dry run
+has no HLO to read and reports no collective bytes.
+
+Hardware constants: NVIDIA's H100 datasheet, SXM part, dense rates at the
+700 W limit: 989 TFLOP/s bf16 on the tensor cores, 3.35 TB/s of HBM3, and
+NVLink 4 at 900 GB/s per card in both directions together, 450 GB/s each
+way.
+"""
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Optional
+
+PEAK_FLOPS = 989e12          # bf16 dense, per card
+HBM_BW = 3.35e12             # bytes/s per card
+LINK_BW = 450e9              # bytes/s per card, one direction of NVLink 4
+
+_DTYPE_BYTES = {
+    "pred": 1, "s8": 1, "u8": 1, "s16": 2, "u16": 2, "bf16": 2, "f16": 2,
+    "s32": 4, "u32": 4, "f32": 4, "s64": 8, "u64": 8, "f64": 8, "c64": 8,
+    "c128": 16,
+}
+
+_COLL_KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+_COLL_RE = re.compile(
+    r"=\s*(\((?:[^()]|\([^()]*\))*\)|[\w\[\],{}]+)\s+"
+    r"(" + "|".join(_COLL_KINDS) + r")(-start)?\(")
+_DONE_RE = re.compile(r"(" + "|".join(_COLL_KINDS) + r")-done\(")
+_SHAPE_RE = re.compile(r"(\w+)\[([\d,]*)\]")
+_XSCAN_RE = re.compile(r"xscan\[(\d+)\]")
+_OPNAME_RE = re.compile(r'op_name="([^"]*)"')
+
+
+def _shape_bytes(shape_str: str) -> int:
+    total = 0
+    for dtype, dims in _SHAPE_RE.findall(shape_str):
+        if dtype not in _DTYPE_BYTES:
+            continue
+        n = 1
+        for d in dims.split(","):
+            if d:
+                n *= int(d)
+        total += n * _DTYPE_BYTES[dtype]
+    return total
+
+
+def collective_bytes(hlo_text: str) -> dict[str, float]:
+    """Per-device bytes per collective kind, loop-trip-count corrected.
+
+    Args:
+        hlo_text: a compiled SPMD module's text.
+
+    Returns:
+        Bytes by collective kind (a ``-start`` counts, its ``-done`` not).
+    """
+    out: dict[str, float] = {}
+    for line in hlo_text.splitlines():
+        m = _COLL_RE.search(line)
+        if not m or _DONE_RE.search(line):
+            continue
+        mult = 1
+        nm = _OPNAME_RE.search(line)
+        if nm:
+            for c in _XSCAN_RE.findall(nm.group(1)):
+                mult *= int(c)
+        kind = m.group(2)
+        out[kind] = out.get(kind, 0.0) + float(_shape_bytes(m.group(1))
+                                               * mult)
+    return out
+
+
+@dataclasses.dataclass
+class Roofline:
+    arch: str
+    shape: str
+    mesh: str
+    chips: int
+    flops_per_dev: float          # analytic, loop-aware
+    bytes_per_dev: float          # analytic HBM traffic model
+    coll_bytes_per_dev: float     # HLO-parsed, xscan-corrected
+    coll_breakdown: dict[str, float]
+    model_flops: float            # 6·N·D (train) / 2·N·D (serve), global
+    traced_flops: float = 0.0     # FlopCounterMode over the traced step
+    hbm_per_dev: Optional[float] = None   # compiler's footprint, if any
+
+    @property
+    def t_compute(self) -> float:
+        return self.flops_per_dev / PEAK_FLOPS
+
+    @property
+    def t_memory(self) -> float:
+        return self.bytes_per_dev / HBM_BW
+
+    @property
+    def t_collective(self) -> float:
+        return self.coll_bytes_per_dev / LINK_BW
+
+    @property
+    def bottleneck(self) -> str:
+        terms = {"compute": self.t_compute, "memory": self.t_memory,
+                 "collective": self.t_collective}
+        return max(terms, key=terms.get)
+
+    @property
+    def useful_flops_frac(self) -> float:
+        """MODEL_FLOPS / accounted FLOPs — remat/redundancy waste."""
+        total = self.flops_per_dev * self.chips
+        return self.model_flops / total if total else 0.0
+
+    @property
+    def roofline_frac(self) -> float:
+        """Useful-compute time / bound time ∈ (0, 1]: the score."""
+        bound = max(self.t_compute, self.t_memory, self.t_collective)
+        t_useful = self.model_flops / self.chips / PEAK_FLOPS
+        return t_useful / bound if bound > 0 else 0.0
+
+    def to_dict(self) -> dict:
+        return {
+            "arch": self.arch, "shape": self.shape, "mesh": self.mesh,
+            "chips": self.chips,
+            "flops_per_dev": self.flops_per_dev,
+            "bytes_per_dev": self.bytes_per_dev,
+            "coll_bytes_per_dev": self.coll_bytes_per_dev,
+            "coll_breakdown": self.coll_breakdown,
+            "model_flops": self.model_flops,
+            "traced_flops": self.traced_flops,
+            "hbm_per_dev": self.hbm_per_dev,
+            "t_compute": self.t_compute, "t_memory": self.t_memory,
+            "t_collective": self.t_collective,
+            "bottleneck": self.bottleneck,
+            "useful_flops_frac": self.useful_flops_frac,
+            "roofline_frac": self.roofline_frac,
+        }

@@ -248,6 +248,32 @@ def test_kill_group_redistributes():
     assert sum(rep.assignment.values()) == 8
 
 
+def test_optimizer_step_holds_only_the_gradient_sum():
+    """Only the sum of the step's gradients reaches the optimizer step:
+    the trees of the microbatches after the first (the first becomes the
+    sum) are freed once added, or a step would hold one more copy of the
+    parameters."""
+    import weakref
+
+    tr = make_trainer("static", {"A": 1.0, "B": 0.5})
+    refs = []
+    grad_fn, apply = tr._grad_fn, tr._apply
+
+    def tracked(batch):
+        loss, grads = grad_fn(batch)
+        refs.append(weakref.ref(grads["embed"]["table"]))
+        return loss, grads
+
+    def checked(grads):
+        assert len(refs) == 8
+        assert refs[0]() is not None            # the sum itself
+        assert all(r() is None for r in refs[1:])
+        return apply(grads)
+
+    tr.exec_cache = ExecutableCache(lambda key: (tracked, checked))
+    tr.train_step()
+
+
 def test_group_clock_includes_the_step_and_counts_compilations():
     tr = make_trainer("static", {"A": 1.0, "B": 0.5})
     rep = tr.train_step()

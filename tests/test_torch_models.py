@@ -158,11 +158,20 @@ def test_attention_train_matches_reference_f32(impl, heads, kv, window,
 
 
 def test_attention_chunked_waits_for_the_training_slice():
-    p = _torch(ref_attn.init_attention(jax.random.PRNGKey(3), 8, 2, 2, 4))
-    with pytest.raises(NotImplementedError, match="training"):
-        attn.attention_train(p, torch.zeros(1, 4, 8), num_heads=2,
-                             num_kv_heads=2, head_dim=4, rope_freqs=None,
-                             impl="chunked")
+    """``impl="chunked"`` was refused until the chunked forms were
+    ported; it now runs and matches the reference's chunked attention
+    (GQA 4/2, window 3, RoPE)."""
+    p = ref_attn.init_attention(jax.random.PRNGKey(3), 8, 4, 2, 4)
+    x = _normal(9, 2, 6, 8)
+    freqs = ref_layers.rope_frequencies(4)
+    want = ref_attn.attention_train(
+        p, jnp.asarray(x), num_heads=4, num_kv_heads=2, head_dim=4,
+        rope_freqs=freqs, window=3, impl="chunked")
+    got = attn.attention_train(
+        _torch(p), torch.from_numpy(x), num_heads=4, num_kv_heads=2,
+        head_dim=4, rope_freqs=layers.rope_frequencies(4), window=3,
+        impl="chunked")
+    _close(got, want)
 
 
 def test_attention_decode_matches_reference_through_the_ring():
