@@ -19,9 +19,8 @@ literal ``none`` resets an Optional field (``--max-inflight none``) or
 clears accumulated options (``--scheduler-opt none``), so every spec is
 reachable from argv even over a non-default base.
 
-:func:`registry_listing` lists schedulers, workloads and kernels. The
-reference's listing adds an ``analysis:`` section of its static-analysis
-passes; the port has no analysis package yet, so that section is left out.
+:func:`registry_listing` lists schedulers, workloads, kernels and the
+static-analysis passes of :mod:`repro_torch.analysis`.
 """
 from __future__ import annotations
 
@@ -200,12 +199,12 @@ def spec_from_args(args: argparse.Namespace, *,
 def registry_listing() -> str:
     """Human-readable dump of every registered plugin (``--list``).
 
-    One line per registered scheduler, workload and kernel with its
-    declared option fields — the introspection surface the serve CLI
-    prints, so a freshly registered third-party plugin is discoverable
-    without reading code. Kernels additionally show their per-argument
-    partition semantics (split axis/halo, broadcast, defaults). There is
-    no ``analysis:`` section: the port has no static-analysis passes yet.
+    One line per registered scheduler, workload, kernel and
+    static-analysis pass with its declared option fields — the
+    introspection surface the serve CLI prints, so a freshly registered
+    third-party plugin is discoverable without reading code. Kernels
+    additionally show their per-argument partition semantics (split
+    axis/halo, broadcast, defaults); analysis passes show their rule ids.
 
     Returns:
         The formatted multi-line listing.
@@ -244,6 +243,13 @@ def registry_listing() -> str:
             args_desc = "(factory needs options)"
         lines.append(f"  {name:14s} args: {args_desc}; options: "
                      f"{', '.join(sorted(plugin.fields)) or '-'}")
+    from repro_torch import analysis
+
+    lines.append("analysis:")
+    for name in analysis.pass_names():
+        plugin = analysis.pass_plugin(name)
+        rules = ", ".join(r.id for r in plugin.rules)
+        lines.append(f"  {name:14s} [{plugin.scope}] rules: {rules}")
     return "\n".join(lines)
 
 

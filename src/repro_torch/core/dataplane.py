@@ -672,6 +672,12 @@ class DataPlane:
         :meth:`issue` and :meth:`complete`. Sets ``pkg.t_launch`` /
         ``pkg.t_complete`` / ``pkg.t_collected`` and updates the plan's
         counters; the caller sets ``pkg.t_issue``.
+
+        Args:
+            unit: the :class:`~repro_torch.core.units.TorchUnit` executing
+                it.
+            plan: the launch's data-plane state.
+            pkg: the :class:`~repro_torch.core.package.Package` to run.
         """
         with unit.stream_context():
             staged = self.stage(unit, plan, pkg)

@@ -284,7 +284,9 @@ class RealBackend(Backend):
         self.plane = plane
         self.board = board
         self.condition = condition
-        self.loop = None        # set by the engine for elastic membership
+        # set once by the engine, before its workers start, for the
+        # dead-unit guard of elastic membership
+        self.loop = None  # guarded-by: caller
         # set by the engine: a launch resolves only once none of its
         # packages runs on a unit and its arrays are unmapped (settle)
         self.settles = False

@@ -58,16 +58,22 @@ def resolve_impl(impl: str | None = None) -> str:
 
 
 def _impl_axis(inner: Callable) -> Callable:
-    """Validate the ``impl`` option, then call the memoized factory."""
+    """Wrap a cached factory so its ``impl`` option resolves "auto" first.
+
+    ``inner`` is the ``lru_cache``d builder keyed on the *canonical* impl
+    name; resolving before the cache keeps the memoization contract
+    (same options -> same kernel object) intact across the auto default,
+    so ``build_kernel("taylor")``, ``impl="auto"`` and ``impl=""`` share
+    one object, which the engine's fusion keys hash on.
+    """
     @functools.wraps(inner)
     def factory(*, impl: str = "auto", **options) -> CoexecKernel:
-        resolve_impl(impl)
-        return inner(**options)
+        return inner(impl=resolve_impl(impl), **options)
     return factory
 
 
 @functools.lru_cache(maxsize=None)
-def _taylor_kernel_impl(*, terms: int = 12) -> CoexecKernel:
+def _taylor_kernel_impl(*, impl: str, terms: int = 12) -> CoexecKernel:
     """Taylor-series sin over a split 1-D array (regular, compute-bound)."""
 
     def fn(offset, x, *, out, _terms=int(terms)):
@@ -85,7 +91,7 @@ def _taylor_inputs(n: int, rng) -> list:
 
 
 @functools.lru_cache(maxsize=None)
-def _gaussian_kernel_impl() -> CoexecKernel:
+def _gaussian_kernel_impl(*, impl: str) -> CoexecKernel:
     """Separable 5x5 blur; rows split with a 2-row zero-filled halo.
 
     The halo chunk says which context rows lie beyond the image, so the
@@ -107,7 +113,7 @@ def _gaussian_inputs(n: int, rng) -> list:
 
 
 @functools.lru_cache(maxsize=None)
-def _matmul_kernel_impl() -> CoexecKernel:
+def _matmul_kernel_impl(*, impl: str) -> CoexecKernel:
     """Row-split MatMul: A splits by rows, B broadcasts whole."""
 
     def fn(offset, a_rows, b, *, out):
@@ -129,7 +135,7 @@ def _matmul_inputs(n: int, rng) -> list:
 
 
 @functools.lru_cache(maxsize=None)
-def _mandelbrot_kernel_impl(*, max_iter: int = 64) -> CoexecKernel:
+def _mandelbrot_kernel_impl(*, impl: str, max_iter: int = 64) -> CoexecKernel:
     """Escape iterations over split coordinate arrays (irregular)."""
 
     def fn(offset, cre, cim, *, out, _it=int(max_iter)):
@@ -149,7 +155,7 @@ def _mandelbrot_inputs(n: int, rng) -> list:
 
 
 @functools.lru_cache(maxsize=None)
-def _ray_kernel_impl() -> CoexecKernel:
+def _ray_kernel_impl(*, impl: str) -> CoexecKernel:
     """Ray tracing: split ray directions, broadcast sphere scene.
 
     The scene is a trailing BROADCAST argument with a default (the demo
@@ -177,7 +183,7 @@ def _ray_inputs(n: int, rng) -> list:
 
 
 @functools.lru_cache(maxsize=None)
-def _rap_kernel_impl() -> CoexecKernel:
+def _rap_kernel_impl(*, impl: str) -> CoexecKernel:
     """Resource-allocation rows: values and lengths split together."""
 
     def fn(offset, values, lengths, *, out):

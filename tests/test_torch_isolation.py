@@ -3,9 +3,9 @@
 An AST scan of every module under ``src/repro_torch`` finds no import of
 ``jax`` or ``repro``, and a fresh interpreter that imports the port's
 packages (the DES, traffic, cluster and energy tiers, the serve CLI, the
-roofline, the sharding rules, the mesh and the dry run among them) and
-builds a DES profile through the registry has neither in ``sys.modules``
-afterwards.
+roofline, the sharding rules, the mesh, the dry run and the
+static-analysis passes among them) and builds a DES profile through the
+registry has neither in ``sys.modules`` afterwards.
 """
 import ast
 import os
@@ -42,7 +42,8 @@ def test_scan_covers_the_package():
                    "core/cluster.py", "core/workloads.py", "api/cli.py",
                    "models/sharding.py", "launch/mesh.py",
                    "launch/dryrun.py", "roofline/flops.py",
-                   "roofline/analysis.py"):
+                   "roofline/analysis.py", "analysis/core.py",
+                   "analysis/consistency.py"):
         assert f"repro_torch/{module}" in names
 
 
@@ -60,7 +61,8 @@ def test_import_leaves_no_jax_or_reference_in_sys_modules():
             "repro_torch.core.sim, repro_torch.core.traffic, "
             "repro_torch.core.cluster, repro_torch.core.energy, "
             "repro_torch.roofline, repro_torch.models.sharding, "
-            "repro_torch.launch.mesh, repro_torch.launch.dryrun\n"
+            "repro_torch.launch.mesh, repro_torch.launch.dryrun, "
+            "repro_torch.analysis\n"
             "from repro_torch.core import paper_workload\n"
             "paper_workload('mandelbrot')\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

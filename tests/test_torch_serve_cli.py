@@ -12,8 +12,8 @@
   ``speed_hints`` and ``dist`` (none here: the real path measures the
   shares on the devices; the reference's (0.4, 0.6) and 0.4 were set for
   two faked CPU units).
-* ``registry_listing`` equals the reference's without its ``analysis:``
-  section (the port has no static-analysis passes).
+* ``registry_listing`` equals the reference's string for string, its
+  ``analysis:`` section (the port's own static-analysis passes) included.
 * The DES rows (``coexec_sim_rows``, ``coexec_multi_rows``,
   ``traffic_rows``, ``cluster_rows``) equal the reference's row for row,
   and ``main`` prints what the reference prints for ``--coexec sim`` and
@@ -160,13 +160,15 @@ def test_default_serve_spec_differs_only_in_units():
     assert got["units"]["count"] == 2
 
 
-def test_registry_listing_is_the_reference_without_analysis():
+def test_registry_listing_is_the_reference():
     got = api.registry_listing()
     want = ref_api.registry_listing()
-    assert "analysis:" in want and "analysis:" not in got
-    assert got == want[:want.index("\nanalysis:")]
+    assert got == want
     assert got.splitlines()[0] == "schedulers:"
     assert "workloads:" in got and "kernels:" in got
+    tail = got.split("\nanalysis:\n")[1].splitlines()
+    assert [line.split()[0] for line in tail] == [
+        "consistency", "determinism", "exceptions", "locks"]
 
 
 def rows_json(rows) -> str:
