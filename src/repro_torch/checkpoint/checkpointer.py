@@ -9,7 +9,10 @@ them, so a checkpoint written by either package restores into the other
 :meth:`repro_torch.hetero.HeteroTrainer.state_tree`). ``save_async``
 takes the host copy on the caller's thread, then hands it to a writer
 thread, so the train loop never blocks on disk and a later in-place
-update cannot reach a checkpoint being written.
+update cannot reach a checkpoint being written. ``restore`` with
+``shardings`` places each leaf on the mesh in force as a DTensor, as the
+reference's ``device_put`` places it (the format on disk is sharding-free,
+so a checkpoint restores onto any mesh).
 """
 from __future__ import annotations
 
@@ -47,9 +50,11 @@ def _unflatten_into(template: Tree, flat: dict[str, np.ndarray]) -> Tree:
     def fill(path, leaf):
         key = _key(path)
         arr = flat[key]
-        if arr.shape != tuple(np.shape(leaf)):
+        shape = tuple(leaf.shape) if hasattr(leaf, "shape") else \
+            np.shape(leaf)
+        if arr.shape != shape:
             raise ValueError(f"shape mismatch for {key}: "
-                             f"{arr.shape} vs {tuple(np.shape(leaf))}")
+                             f"{arr.shape} vs {shape}")
         return arr
     return tree_map_with_path(fill, template)
 
@@ -113,25 +118,46 @@ class Checkpointer:
 
     def restore(self, template: Tree, *, step: Optional[int] = None,
                 shardings: Optional[Tree] = None) -> tuple[int, Tree]:
-        """The checkpoint at ``step`` (the latest by default) as numpy
-        arrays in the template's structure (its leaves give the keys and
-        the shapes to check).
+        """The checkpoint at ``step`` (the latest by default) in the
+        template's structure (its leaves give the keys and the shapes to
+        check): numpy arrays, or, with ``shardings``, DTensors on the mesh
+        in force.
+
+        Args:
+            template: a tree of the checkpoint's structure (arrays or
+                tensors; only their shapes are read).
+            step: the step to restore.
+            shardings: a tree of specs (tuples, as
+                ``models.sharding.param_specs`` gives them) in the
+                template's structure, resolved against the ``DeviceMesh``
+                in force (``models.sharding.use_mesh``). Each leaf is
+                placed on that mesh's device type as a DTensor of its
+                spec, each rank keeping its own slice.
 
         Raises:
-            NotImplementedError: ``shardings`` was given: the port's
-                programs run unpartitioned on one device, so there is no
-                mesh to place leaves on.
             FileNotFoundError: no checkpoint in the directory.
+            ValueError: a leaf's shape differs from the template's, or
+                ``shardings`` was given with no ``DeviceMesh`` in force.
         """
-        if shardings is not None:
-            raise NotImplementedError(
-                "Checkpointer.restore(shardings=...) places leaves on a "
-                "partitioned mesh; the port's programs run unpartitioned "
-                "on one device")
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
         path = os.path.join(self.dir, f"ckpt_{step:010d}.npz")
         with np.load(path) as data:
             flat = {k: data[k] for k in data.files}
-        return step, _unflatten_into(template, flat)
+        tree = _unflatten_into(template, flat)
+        if shardings is None:
+            return step, tree
+        from ..models.sharding import distribute_tensor, mesh_in_force
+        mesh = mesh_in_force()
+        if not hasattr(mesh, "device_type"):
+            raise ValueError("Checkpointer.restore(shardings=...): no "
+                             "DeviceMesh in force (models.sharding.use_mesh)")
+
+        def place(path, arr):
+            spec = shardings
+            for key in path:
+                spec = spec[key]
+            return distribute_tensor(
+                torch.from_numpy(arr).to(mesh.device_type), mesh, spec)
+        return step, tree_map_with_path(place, tree)

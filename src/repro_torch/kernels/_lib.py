@@ -205,6 +205,23 @@ def require_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
     require_cuda(name, *((t, torch.float32) for t in tensors))
 
 
+def refuse_dtensor(name: str, *tensors) -> None:
+    """Refuse a DTensor: a hand kernel reads one device's memory through a
+    raw pointer, so on a DTensor it would compute on one rank's shard as
+    if it were the whole tensor. A partitioned program runs the chunked
+    forms (``attn_impl`` and ``mixer_impl`` "chunked"), as the reference's
+    dry run lowers them. Checked on every device.
+
+    Raises:
+        ValueError: an input is a DTensor.
+    """
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise ValueError(f"{name}: the hand kernel takes whole tensors on "
+                         f"one device, not a DTensor; a partitioned program "
+                         f"runs the chunked forms")
+
+
 def refuse_grad(name: str, plain: str, *tensors: torch.Tensor) -> None:
     """Refuse inputs that require grad: a hand kernel writes its output
     through a raw pointer, so autograd would see no graph and a training

@@ -100,6 +100,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         RuntimeError: the launch was refused.
     """
     _check(q, k, v, window)
+    _lib.refuse_dtensor("flash_attention", q, k, v)
     _lib.refuse_grad("flash_attention",
                      'flash_attention_plain, attn_impl="xla"', q, k, v)
     if q.device.type == "cpu":

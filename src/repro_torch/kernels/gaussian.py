@@ -81,6 +81,7 @@ def gaussian_blur_halo(img: torch.Tensor, *, lo_pad: int = 0,
     if out is not None and tuple(out.shape) != (rows, W):
         raise ValueError(f"gaussian: out shape {tuple(out.shape)} != "
                          f"{(rows, W)}")
+    _lib.refuse_dtensor("gaussian_blur_halo", img, out)
     if img.device.type == "cpu":
         return gaussian_blur_halo_plain(img, lo_pad=lo_pad, hi_pad=hi_pad,
                                         out=out)

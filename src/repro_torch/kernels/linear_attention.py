@@ -209,6 +209,7 @@ def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         RuntimeError: the launch was refused.
     """
     _check(q, k, v, log_decay)
+    _lib.refuse_dtensor("linear_attention", q, k, v, log_decay)
     _lib.refuse_grad("linear_attention",
                      'linear_attention_plain, mixer_impl="ref"', q, k, v,
                      log_decay)

@@ -67,6 +67,7 @@ def mandelbrot(cre: torch.Tensor, cim: torch.Tensor, *, max_iter: int = 64,
         RuntimeError: the launch was refused.
     """
     _check(cre, cim, out)
+    _lib.refuse_dtensor("mandelbrot", cre, cim, out)
     if cre.device.type == "cpu":
         return mandelbrot_plain(cre, cim, max_iter=max_iter, out=out)
     if out is None:

@@ -98,6 +98,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
         RuntimeError: the launch was refused.
     """
     M, N, K = _check_shapes(a, b, out)
+    _lib.refuse_dtensor("matmul", a, b, out)
     if a.device.type == "cpu":
         if out is None:
             return torch.matmul(a, b)

@@ -61,6 +61,7 @@ def rap(values: torch.Tensor, lengths: torch.Tensor, *,
         RuntimeError: the launch was refused.
     """
     _check(values, lengths, out)
+    _lib.refuse_dtensor("rap", values, lengths, out)
     if values.device.type == "cpu":
         return rap_plain(values, lengths, out=out)
     if out is None:

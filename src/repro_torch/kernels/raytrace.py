@@ -124,6 +124,7 @@ def raytrace(dx: torch.Tensor, dy: torch.Tensor, dz: torch.Tensor,
         RuntimeError: the launch was refused.
     """
     _check(dx, dy, dz, spheres, out)
+    _lib.refuse_dtensor("raytrace", dx, dy, dz, spheres, out)
     if dx.device.type == "cpu":
         return raytrace_plain(dx, dy, dz, spheres, out=out)
     if out is None:

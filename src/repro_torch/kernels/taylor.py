@@ -56,6 +56,7 @@ def taylor_sin(x: torch.Tensor, *, terms: int = 12,
     if out is not None and out.shape != x.shape:
         raise ValueError(f"taylor_sin: out shape {tuple(out.shape)} != "
                          f"input shape {tuple(x.shape)}")
+    _lib.refuse_dtensor("taylor_sin", x, out)
     if x.device.type == "cpu":
         return taylor_sin_plain(x, terms=terms, out=out)
     if out is None:

@@ -6,19 +6,28 @@ shapes on the meta device (no memory, no device work): a train step
 (``value_and_grad`` over the ``GRAD_ACCUM`` microbatches, clipping, AdamW's
 update), a prefill, or a decode step against a ``seq_len``-deep cache, with
 the chunked attention and mixers and remat, as the reference lowers them.
-A trace that completes is the port's proof that the cell is coherent, and
-``FlopCounterMode`` counts its FLOPs (``traced_flops``; ``trace_seconds``
-is its wall time). Beside it, the reference's analytic accounting, on the
-chosen mesh's axis sizes: the parameter count, the per-device state under
-the sharding rules, the roofline's FLOPs and bytes and the model FLOPs.
-The port has no partitioning compiler and the card is one device, so
-there are no collective bytes (``coll_source`` says so) and no compiled
-memory footprint (``hbm_per_dev`` is None).
 
-Meshes: ``single`` (16 x 16) and ``multi`` (2 x 16 x 16), the reference's
-accounting layouts, and ``card``, the (1, 1) layout of one card. All three
-are axis names and sizes only: the trace runs on the meta device, and the
-accounting reads nothing else of a mesh.
+On ``single`` (16 x 16) and ``multi`` (2 x 16 x 16), the reference's
+production layouts, the step is partitioned: this process is rank 0 of a
+fake process group of 256 or 512 ranks (``launch.mesh.fake_mesh``,
+started and destroyed here), the parameters, AdamW's state (placed as the
+parameters, as ``zeros_like`` of them), each microbatch and the cache are
+DTensors placed by the sharding rules, and the models' ``shard`` calls
+constrain the activations. A trace that completes is the port's proof
+that the sharding is coherent, as the reference's GSPMD compile is.
+:class:`repro_torch.roofline.TraceCounter` reads rank 0's side of it:
+the bytes of each collective's result by kind (``coll_bytes_per_dev``,
+``coll_breakdown``), the peak of the bytes it holds live, inputs
+included (``hbm_per_dev``, the reference's argument + temp + output
+bytes), and the FLOPs it runs (``traced_flops``: one rank's, as the
+reference's ``xla_raw_flops`` of its SPMD program; compare it with
+``flops_per_dev``, the analytic count over the chips). ``card`` is the
+(1, 1) layout of one card: its step runs unpartitioned, starts no process
+group and moves no collective bytes, and its ``traced_flops`` and
+``hbm_per_dev`` are the whole step's. Beside them, the reference's
+analytic accounting on the mesh's axis sizes: the parameter count, the
+per-device state under the sharding rules, the roofline's FLOPs and bytes
+and the model FLOPs. ``trace_seconds`` is the trace's wall time.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-0.6b --shape train_4k --mesh card
@@ -27,6 +36,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -34,21 +44,25 @@ import time
 from typing import Any, Optional
 
 import torch
-from torch.utils.flop_counter import FlopCounterMode
 
 from ..configs import ARCH_IDS, SHAPES, get_config
 from ..configs.base import ModelConfig, ShapeConfig
 from ..models import (build_model, cache_specs, count_params, param_specs,
                       reference_layout)
 from ..models.convert import META
-from ..models.sharding import axis_sizes, batch_spec, set_fsdp, use_mesh
+from ..models.sharding import (axis_sizes, batch_spec, distribute_tensor,
+                               partitioned, place_cache, place_params,
+                               set_fsdp, use_mesh)
 from ..optim import AdamW, accumulate_grads, clip_by_global_norm
-from ..roofline import Roofline, cell_bytes, cell_flops
+from ..roofline import Roofline, TraceCounter, cell_bytes, cell_flops
 from ..tree import leaves_with_path
-from .mesh import MeshLayout, make_production_mesh
+from .mesh import MeshLayout, fake_mesh, make_production_mesh
 
 MESHES = ("single", "multi", "card")
-COLL_SOURCE = "none (unpartitioned trace)"
+COLL_SOURCES = {
+    "partitioned": "traced partitioned step (DTensor, rank 0 of a fake "
+                   "process group)",
+    "card": "none (one device: the step runs unpartitioned)"}
 
 
 def sharded_bytes(structs: Any, specs: Any, mesh: Any) -> float:
@@ -116,38 +130,60 @@ def model_flops_for(cfg: ModelConfig, shape: ShapeConfig,
     return 2.0 * n_active * shape.global_batch      # decode: 1 token/row
 
 
-def traced_flops(model, params: Any, batch: dict, shape: ShapeConfig,
-                 accum: int = 1, cache: Optional[Any] = None) -> float:
-    """FLOPs of one step traced on the tensors' device (the meta device in
-    the dry run): train (``accum`` microbatches, clipping, AdamW), prefill,
-    or one decode step against ``cache``."""
-    with FlopCounterMode(display=False) as counter:
+def trace_step(model, params: Any, batch: dict, shape: ShapeConfig,
+               accum: int = 1, cache: Optional[Any] = None,
+               mesh: Optional[Any] = None) -> TraceCounter:
+    """Trace one step on the tensors' device (the meta device in the dry
+    run): train (``accum`` microbatches, clipping, AdamW), prefill, or one
+    decode step against ``cache``. With a ``DeviceMesh``, the parameters,
+    cache and each microbatch are placed on it by the rules first, and the
+    step runs partitioned.
+
+    Returns:
+        The :class:`TraceCounter` of the step: collective bytes by kind,
+        FLOPs and peak live bytes, of one rank under a mesh.
+    """
+    micro = [batch]
+    if shape.kind == "train":
+        size = shape.global_batch // accum
+        micro = [{k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+                 for i in range(accum)]
+    run = contextlib.nullcontext()
+    if mesh is not None:
+        params = place_params(params, mesh)
+        if cache is not None:
+            cache = place_cache(cache, mesh)
+        with use_mesh(mesh):
+            micro = [{k: distribute_tensor(v, mesh, batch_spec(v.shape))
+                      for k, v in mb.items()} for mb in micro]
+        run = partitioned(mesh)
+    counter = TraceCounter()
+    counter.hold((params, micro, cache))
+    with run, counter:
         if shape.kind == "train":
             optimizer = AdamW(lr=1e-4)
             state = optimizer.init(params)
-            size = shape.global_batch // accum
-            micro = [{k: v[i * size:(i + 1) * size]
-                      for k, v in batch.items()} for i in range(accum)]
             _, grads = accumulate_grads(model.loss, params, micro)
             grads, _ = clip_by_global_norm(grads, 1.0)
             optimizer.update(grads, state, params)
         else:
             with torch.no_grad():
                 if shape.kind == "prefill":
-                    model.prefill_logits(params, batch)
+                    model.prefill_logits(params, micro[0])
                 else:
-                    model.decode_step(params, batch["tokens"], cache)
-    return float(counter.get_total_flops())
+                    model.decode_step(params, micro[0]["tokens"], cache)
+    return counter
 
 
 def account(model, params: Any, shape: ShapeConfig, mesh: Any, *,
             mesh_name: str, cache: Optional[Any] = None,
-            traced: float = 0.0) -> tuple[Roofline, float]:
+            counter: Optional[TraceCounter] = None
+            ) -> tuple[Roofline, float]:
     """The reference's analytic accounting of one cell on ``mesh``'s axis
-    sizes: the roofline (no collective bytes: the port's program is
-    unpartitioned) and the per-device bytes of the sharded state (the
-    parameters, with AdamW's m and v for train, with ``cache`` for
-    decode).
+    sizes: the roofline, its collective bytes, traced FLOPs and footprint
+    taken from ``counter`` (none without one), and the per-device bytes of
+    the sharded state (the parameters, with AdamW's m and v for train,
+    with ``cache`` for decode).
 
     Args:
         model: the model of the cell's config.
@@ -156,7 +192,7 @@ def account(model, params: Any, shape: ShapeConfig, mesh: Any, *,
         mesh: a ``DeviceMesh`` or ``MeshLayout``.
         mesh_name: the name the roofline reports.
         cache: the decode cache (decode cells only).
-        traced: the FLOPs counted in a trace of the step.
+        counter: the trace of the step on one rank of ``mesh``.
 
     Returns:
         The roofline and the state's bytes a device.
@@ -179,6 +215,7 @@ def account(model, params: Any, shape: ShapeConfig, mesh: Any, *,
             state_bytes_dev = param_bytes_dev + cache_bytes_dev
         else:
             state_bytes_dev = param_bytes_dev
+    coll = dict(counter.collectives) if counter else {}
     roof = Roofline(
         arch=cfg.name, shape=shape.name, mesh=mesh_name, chips=chips,
         flops_per_dev=cell_flops(cfg, shape)["total_flops"] / chips,
@@ -187,9 +224,10 @@ def account(model, params: Any, shape: ShapeConfig, mesh: Any, *,
                                  cache_bytes_per_dev=cache_bytes_dev,
                                  chips=chips,
                                  dp_shards=chips // sizes["model"]),
-        coll_bytes_per_dev=0.0, coll_breakdown={},
+        coll_bytes_per_dev=float(sum(coll.values())), coll_breakdown=coll,
         model_flops=model_flops_for(cfg, shape, n_params),
-        traced_flops=traced, hbm_per_dev=None)
+        traced_flops=float(counter.flops) if counter else 0.0,
+        hbm_per_dev=float(counter.peak_bytes) if counter else None)
     return roof, state_bytes_dev
 
 
@@ -203,7 +241,9 @@ def layout_for(mesh: str) -> MeshLayout:
 def run_cell(arch: str, shape_name: str, mesh: str = "single",
              verbose: bool = True) -> dict:
     """Trace one cell and account for it on ``mesh`` (single, multi or
-    card). Returns the reference's fields, ``compile_seconds`` as
+    card): partitioned on a fake process group of the production mesh,
+    which is destroyed before this returns, or unpartitioned on the card.
+    Returns the reference's fields, ``compile_seconds`` as
     ``trace_seconds`` and ``xla_raw_flops`` as ``traced_flops``."""
     if mesh not in MESHES:
         raise ValueError(f"mesh {mesh!r}: one of {MESHES}")
@@ -224,6 +264,7 @@ def run_cell(arch: str, shape_name: str, mesh: str = "single",
     # reference's layout rule, kept so that the specs compare
     set_fsdp(cfg.n_params() * 12 / 16 > 8e9)
     model = build_model(cfg)
+    layout = layout_for(mesh)
     t0 = time.perf_counter()
     params = model.init(torch.Generator().manual_seed(0), META)
     batch, _ = make_batch_specs(cfg, shape)
@@ -231,28 +272,34 @@ def run_cell(arch: str, shape_name: str, mesh: str = "single",
     if shape.kind == "decode":
         cache = model.init_cache(shape.global_batch, shape.seq_len,
                                  device=META)
-    traced = traced_flops(model, params, batch, shape,
-                          GRAD_ACCUM.get((arch, shape_name), 1), cache)
+    accum = GRAD_ACCUM.get((arch, shape_name), 1)
+    with (contextlib.nullcontext() if mesh == "card"
+          else fake_mesh(layout)) as device_mesh:
+        counter = trace_step(model, params, batch, shape, accum, cache,
+                             device_mesh)
     trace_s = time.perf_counter() - t0
-    roof, state_bytes_dev = account(model, params, shape, layout_for(mesh),
+    roof, state_bytes_dev = account(model, params, shape, layout,
                                     mesh_name=mesh, cache=cache,
-                                    traced=traced)
+                                    counter=counter)
     out = {"status": "ok", "n_params": count_params(params),
            "trace_seconds": round(trace_s, 1),
            "state_bytes_per_dev": state_bytes_dev,
-           "memory_analysis": {}, "coll_source": COLL_SOURCE,
+           "memory_analysis": {},
+           "coll_source": COLL_SOURCES["card" if mesh == "card"
+                                       else "partitioned"],
            **roof.to_dict()}
     if verbose:
         print(f"[{arch} × {shape_name} × {mesh}] "
               f"trace={out['trace_seconds']}s "
               f"t_comp={roof.t_compute*1e3:.1f}ms "
               f"t_mem={roof.t_memory*1e3:.1f}ms "
-              f"t_coll=not available "
+              f"t_coll={roof.t_collective*1e3:.1f}ms "
               f"bound={roof.bottleneck} "
               f"frac={roof.roofline_frac:.3f} "
               f"state/dev={state_bytes_dev/2**30:.2f}GiB "
-              f"traced/analytic flops="
-              f"{traced / (roof.flops_per_dev * roof.chips):.3f}")
+              f"hbm/dev={roof.hbm_per_dev/2**30:.2f}GiB "
+              f"traced/analytic flops a device="
+              f"{roof.traced_flops / roof.flops_per_dev:.3f}")
     return out
 
 

@@ -7,14 +7,19 @@ first if there is none (its caller, or a test, destroys it with
 ``torch.distributed.destroy_process_group``).
 :func:`make_production_mesh` gives the reference's accounting layouts, 256
 and 512 devices, as axis names and sizes with no devices behind them (as
-jax's ``AbstractMesh``). Both are functions, never module-level constants:
+jax's ``AbstractMesh``); :func:`fake_mesh` puts such a layout on a fake
+process group, this process standing in for rank 0, so that a step can be
+traced partitioned on the meta device (as the reference compiles for 512
+fake host devices). All are functions, never module-level constants:
 importing this module touches no device and no process group.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import socket
+from typing import Iterator
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +38,35 @@ def make_production_mesh(*, multi_pod: bool = False) -> MeshLayout:
     if multi_pod:
         return MeshLayout(("pod", "data", "model"), (2, 16, 16))
     return MeshLayout(("data", "model"), (16, 16))
+
+
+@contextlib.contextmanager
+def fake_mesh(layout: MeshLayout) -> Iterator:
+    """A ``DeviceMesh`` of ``layout``'s axis names and sizes on a fake
+    process group of ``layout.size()`` ranks, this process rank 0, for
+    tracing only: its collectives move no data and return tensors of the
+    right shapes. The group is started on entry and destroyed on exit,
+    so none outlives the block.
+
+    Raises:
+        RuntimeError: a process group is already live in this process
+            (one process has one default group).
+    """
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError(f"fake_mesh {layout.shape}: a "
+                           f"{dist.get_backend()} process group is live in "
+                           f"this process")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=layout.size())
+    try:
+        yield init_device_mesh("cpu", layout.shape,
+                               mesh_dim_names=layout.mesh_dim_names)
+    finally:
+        dist.destroy_process_group()
 
 
 def _free_port() -> int:

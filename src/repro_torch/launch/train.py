@@ -8,8 +8,11 @@ checkpoints in ``--ckpt-dir``:
         --steps 100 --policy hguided --ckpt-dir /tmp/ckpt --device cpu
 
 ``--dry-run`` traces the full config of ``--arch`` at ``--shape`` on the
-meta device and accounts for it on the production mesh (``--multi-pod``
-for the two-pod one): ``launch/dryrun.py``'s ``run_cell``.
+meta device and accounts for it on ``--mesh``: ``single`` (the default),
+``multi`` (also ``--multi-pod``, the reference's flag) or ``card``, by
+``launch/dryrun.py``'s ``run_cell``, which partitions the step on a fake
+process group of the production mesh and ends that group before it
+returns.
 """
 from __future__ import annotations
 
@@ -40,6 +43,9 @@ def _parser() -> argparse.ArgumentParser:
                     help="full config on the production mesh, traced "
                          "on the meta device only")
     ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--mesh", choices=["single", "multi", "card"],
+                    default=None,
+                    help="the dry run's mesh (single unless --multi-pod)")
     ap.add_argument("--device", default="cuda:0",
                     help="where the model trains (cuda:0 by default; cpu "
                          "for a machine without a CUDA card)")
@@ -55,8 +61,10 @@ def main(argv: Optional[list[str]] = None) -> dict:
 
     if args.dry_run:
         from .dryrun import run_cell
-        return run_cell(args.arch, args.shape,
-                        "multi" if args.multi_pod else "single")
+        mesh = args.mesh or ("multi" if args.multi_pod else "single")
+        if args.multi_pod and mesh != "multi":
+            ap.error(f"--multi-pod with --mesh {mesh}")
+        return run_cell(args.arch, args.shape, mesh)
     device = torch.device(args.device)
     if device.type == "cuda" and (not torch.cuda.is_available() or (
             device.index or 0) >= torch.cuda.device_count()):

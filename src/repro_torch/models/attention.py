@@ -14,10 +14,14 @@ from __future__ import annotations
 
 from typing import Optional
 
+import functools
+
 import torch
+from torch.distributed.tensor import DTensor, Shard
 
 from ..kernels import flash_attention, flash_attention_plain
 from .layers import apply_rope, dense, init_dense, init_rmsnorm, rmsnorm
+from .sharding import flatten, per_shard, shard, unflatten
 
 Params = dict
 
@@ -48,10 +52,9 @@ def _project_qkv(p: Params, x: torch.Tensor, num_heads: int,
                  num_kv_heads: int, head_dim: int, positions: torch.Tensor,
                  rope_freqs: Optional[torch.Tensor]):
     """q (B, H, T, D), k and v (B, Hkv, T, D), contiguous."""
-    B, T, _ = x.shape
-    q = dense(p["wq"], x).reshape(B, T, num_heads, head_dim)
-    k = dense(p["wk"], x).reshape(B, T, num_kv_heads, head_dim)
-    v = dense(p["wv"], x).reshape(B, T, num_kv_heads, head_dim)
+    q = unflatten(dense(p["wq"], x), -1, (num_heads, head_dim))
+    k = unflatten(dense(p["wk"], x), -1, (num_kv_heads, head_dim))
+    v = unflatten(dense(p["wv"], x), -1, (num_kv_heads, head_dim))
     if "q_norm" in p:
         q = rmsnorm(p["q_norm"], q)
         k = rmsnorm(p["k_norm"], k)
@@ -61,6 +64,10 @@ def _project_qkv(p: Params, x: torch.Tensor, num_heads: int,
     if rope_freqs is not None:
         q = apply_rope(q, positions[:, None, :], rope_freqs)
         k = apply_rope(k, positions[:, None, :], rope_freqs)
+    # heads over model (tensor parallelism), as the reference pins them
+    q = shard(q, ("pod", "data"), "model", None, None)
+    k = shard(k, ("pod", "data"), "model", None, None)
+    v = shard(v, ("pod", "data"), "model", None, None)
     return q.contiguous(), k.contiguous(), v.contiguous()
 
 
@@ -82,13 +89,24 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         chunk: queries per chunk.
 
     Returns:
-        (B, Hq, T, D) in q's dtype.
+        (B, Hq, T, D) in q's dtype. On DTensors each rank attends its own
+        rows and heads (:func:`sharding.per_shard`).
     """
-    B, Hq, T, D = q.shape
-    Hkv = k.shape[1]
+    Hq, Hkv = q.shape[1], k.shape[1]
     if Hkv != Hq:
         k = k.repeat_interleave(Hq // Hkv, dim=1)
         v = v.repeat_interleave(Hq // Hkv, dim=1)
+    k = shard(k, ("pod", "data"), "model", None, None)
+    v = shard(v, ("pod", "data"), "model", None, None)
+    return per_shard(functools.partial(_chunked, causal=causal,
+                                       window=window, chunk=chunk), q, k, v)
+
+
+def _chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+             causal: bool, window: Optional[int],
+             chunk: int) -> torch.Tensor:
+    """:func:`chunked_attention` on plain tensors, kv heads repeated."""
+    T, D = q.shape[2], q.shape[3]
     if T % chunk:
         chunk = T
     kf, vf = k.float(), v.float()
@@ -129,8 +147,7 @@ def attention_train(p: Params, x: torch.Tensor, *, num_heads: int,
     else:
         raise ValueError(f"unknown attn_impl {impl!r}; the port has "
                          f"'flash', 'xla' and 'chunked'")
-    out = out.transpose(1, 2).reshape(B, T, num_heads * head_dim)
-    return dense(p["wo"], out)
+    return dense(p["wo"], flatten(out.transpose(1, 2), 2))
 
 
 def init_kv_cache(batch: int, num_kv_heads: int, max_len: int,
@@ -146,6 +163,20 @@ def init_kv_cache(batch: int, num_kv_heads: int, max_len: int,
                          device=device),
         "len": 0,
     }
+
+
+def _write_slot(cache: torch.Tensor, slot: int,
+                new: torch.Tensor) -> None:
+    """``cache[:, :, slot] = new`` in the cache's dtype. On a DTensor whose
+    slots are sharded (ring decode, sequence over model) the write is a
+    select of every slot equal to ``slot``: indexing one slot of a sharded
+    dim would gather the whole cache onto every rank."""
+    new = new.to(cache.dtype)
+    if not isinstance(cache, DTensor):
+        cache[:, :, slot] = new
+        return
+    hit = torch.arange(cache.shape[2], device=cache.device) == slot
+    cache.copy_(torch.where(hit[:, None], new[:, :, None], cache))
 
 
 def attention_decode(p: Params, x: torch.Tensor, cache: Params, *,
@@ -164,8 +195,8 @@ def attention_decode(p: Params, x: torch.Tensor, cache: Params, *,
     q, k, v = _project_qkv(p, x, num_heads, num_kv_heads, head_dim,
                            positions, rope_freqs)
     slot = pos % max_len                     # ring write (SWA wraps)
-    ck[:, :, slot] = k[:, :, 0].to(ck.dtype)
-    cv[:, :, slot] = v[:, :, 0].to(cv.dtype)
+    _write_slot(ck, slot, k[:, :, 0])
+    _write_slot(cv, slot, v[:, :, 0])
 
     # valid slots: ages 0..min(pos, max_len - 1) relative to the new token
     idx = torch.arange(max_len, device=x.device)
@@ -175,10 +206,20 @@ def attention_decode(p: Params, x: torch.Tensor, cache: Params, *,
         valid &= age < window
 
     G = num_heads // num_kv_heads
-    qf = q.float().reshape(B, num_kv_heads, G, head_dim) * head_dim ** -0.5
-    logits = torch.einsum("bhgd,bhsd->bhgs", qf, ck.float())
-    logits = logits.masked_fill(~valid, float("-inf"))
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhgs,bhsd->bhgd", probs, cv.float())
-    out = out.reshape(B, 1, num_heads * head_dim).to(x.dtype)
+    qf = unflatten(q.float()[:, :, 0], 1, (num_kv_heads, G)) * \
+        head_dim ** -0.5
+
+    def attend(qf, ck, cv):
+        logits = torch.einsum("bhgd,bhsd->bhgs", qf, ck.float())
+        logits = logits.masked_fill(~valid, float("-inf"))
+        probs = torch.softmax(logits, dim=-1)
+        return torch.einsum("bhgs,bhsd->bhgd", probs, cv.float())
+
+    # each rank attends its own rows and heads, unless the ring's slots are
+    # sharded (ring decode: then the heads are whole, and DTensor runs the
+    # einsums across the slots)
+    ring = isinstance(ck, DTensor) and any(
+        isinstance(p, Shard) and p.dim == 2 for p in ck.placements)
+    out = attend(qf, ck, cv) if ring else per_shard(attend, qf, ck, cv)
+    out = flatten(out, 1)[:, None].to(x.dtype)
     return dense(p["wo"], out), {"k": ck, "v": cv, "len": pos + 1}

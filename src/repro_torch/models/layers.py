@@ -17,6 +17,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from .sharding import pinned, rows, settled, shard
+
 Params = dict
 
 
@@ -107,7 +109,7 @@ def init_dense(generator: torch.Generator, d_in: int, d_out: int, *,
 
 
 def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
-    y = torch.matmul(x, p["kernel"].to(x.dtype))
+    y = pinned(torch.matmul(rows(x), p["kernel"].to(x.dtype)))
     if "bias" in p:
         y = y + p["bias"].to(x.dtype)
     return y
@@ -127,6 +129,8 @@ def init_mlp(generator: torch.Generator, d: int, d_ff: int, *,
 
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     h = silu(dense(p["wi_gate"], x)) * dense(p["wi_up"], x)
+    # the hidden over model, as the reference pins it
+    h = shard(h, ("pod", "data"), None, "model")
     return dense(p["wo"], h)
 
 
@@ -157,8 +161,11 @@ def init_embedding(generator: torch.Generator, vocab: int, d: int, *,
 def embed(p: Params, tokens: torch.Tensor,
           dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Rows of the table for ``tokens``, gathered from its ``dtype`` copy
-    (rounding each gathered row equals rounding the whole table first)."""
-    return p["table"][tokens].to(dtype)
+    (rounding each gathered row equals rounding the whole table first).
+    ``F.embedding``: on a vocab-sharded DTensor table each rank looks up
+    its own rows and the partial rows are summed, where an index would
+    gather the whole table."""
+    return settled(F.embedding(tokens, p["table"]).to(dtype))
 
 
 def unembed(p: Params, x: torch.Tensor,
@@ -167,8 +174,15 @@ def unembed(p: Params, x: torch.Tensor,
     ``pad_to`` (the padded columns come out as 0)."""
     table = p["table"].float()
     if pad_to is not None and pad_to > table.shape[0]:
-        table = F.pad(table, (0, 0, 0, pad_to - table.shape[0]))
-    return torch.matmul(x.float(), table.t())
+        # padding moves every shard's boundary, so a sharded table is
+        # gathered (zero rows appended by a concatenation: torch 2.11's
+        # DTensor mis-places a padded one); padded, it goes back over
+        # model, as the rules shard the table, and the logits come out
+        # vocab-sharded, not whole on every rank
+        zeros = torch.zeros(pad_to - table.shape[0], table.shape[1],
+                            device=table.device)
+        table = shard(torch.cat([table, zeros]), "model", None)
+    return pinned(torch.matmul(rows(x.float()), table.t()))
 
 
 def sinusoidal_positions(seq: int, d: int, dtype: torch.dtype = torch.float32,

@@ -24,6 +24,7 @@ recurrent sLSTM matrices and an untied ``lm_head`` stay f32.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Optional
 
 import torch
@@ -40,6 +41,7 @@ from .layers import (cross_entropy, dense, embed, gelu_mlp, init_dense,
                      init_embedding, init_gelu_mlp, init_layernorm, init_mlp,
                      init_rmsnorm, layernorm, mlp, rmsnorm, rope_frequencies,
                      sinusoidal_positions, unembed)
+from .sharding import flatten, per_shard, shard, unflatten
 
 Params = Any
 
@@ -180,19 +182,22 @@ def _build_decoder_lm(cfg: ModelConfig) -> Model:
             ve = dense(params["vision_proj"],
                        batch["vision_embeds"].to(x.dtype))
             x = torch.cat([ve, x[:, ve.shape[1]:, :]], dim=1)
-        return x
+        return shard(x, ("pod", "data"), "model", None)
 
     def block(p, x, freqs):
         x = x + attn.attention_train(
             p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
             rope_freqs=freqs, impl=cfg.attn_impl, **heads)
+        x = shard(x, ("pod", "data"), "model", None)
         hn = rmsnorm(p["ln2"], x, cfg.norm_eps)
+        a = None
         if moe:
             h, a = moe_mod.moe_layer(
                 p["moe"], hn, num_experts=cfg.num_experts,
                 top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
-            return x + h, a
-        return x + mlp(p["mlp"], hn), None
+        else:
+            h = mlp(p["mlp"], hn)
+        return shard(x + h, ("pod", "data"), "model", None), a
 
     block = _maybe_remat(block, cfg.remat)
 
@@ -208,7 +213,8 @@ def _build_decoder_lm(cfg: ModelConfig) -> Model:
             if moe:
                 aux = aux + a
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-        return logits_of(params, x), aux / cfg.num_layers
+        logits = shard(logits_of(params, x), ("pod", "data"), None, "model")
+        return logits, aux / cfg.num_layers
 
     def init_cache(batch: int, max_len: int, *,
                    device: torch.device | str = "cuda:0") -> Params:
@@ -290,7 +296,8 @@ def _build_encdec(cfg: ModelConfig) -> Model:
         x = x + attn.attention_train(
             p["attn"], layernorm(p["ln1"], x), rope_freqs=None,
             causal=False, impl=cfg.attn_impl, **heads)
-        return x + gelu_mlp(p["mlp"], layernorm(p["ln2"], x))
+        x = x + gelu_mlp(p["mlp"], layernorm(p["ln2"], x))
+        return shard(x, ("pod", "data"), "model", None)
 
     enc_block = _maybe_remat(enc_block, cfg.remat)
 
@@ -299,24 +306,24 @@ def _build_encdec(cfg: ModelConfig) -> Model:
         S = frames.shape[1]
         x = frames + sinusoidal_positions(S, cfg.d_model, frames.dtype,
                                           device=frames.device)[None]
+        x = shard(x, ("pod", "data"), "model", None)
         for p in params["encoder_layers"]:
             x = enc_block(p, x)
         return layernorm(params["enc_norm"], x)
 
     def encoder_kv(p, enc):
-        B, S, _ = enc.shape
-        k = dense(p["wk"], enc).reshape(B, S, cfg.num_kv_heads, hd)
-        v = dense(p["wv"], enc).reshape(B, S, cfg.num_kv_heads, hd)
+        k = unflatten(dense(p["wk"], enc), -1, (cfg.num_kv_heads, hd))
+        v = unflatten(dense(p["wv"], enc), -1, (cfg.num_kv_heads, hd))
         return k.transpose(1, 2), v.transpose(1, 2)
 
     def cross_attend(p, x, enc_k, enc_v):
         """Cross-attention against encoder K/V through the plain
         attention, as the reference's ``kref.attention``."""
-        B, T, _ = x.shape
-        q = dense(p["wq"], x).reshape(B, T, cfg.num_heads, hd).transpose(1, 2)
-        out = flash_attention_plain(q, enc_k, enc_v, causal=False)
-        return dense(p["wo"], out.transpose(1, 2).reshape(
-            B, T, cfg.num_heads * hd))
+        q = unflatten(dense(p["wq"], x), -1,
+                      (cfg.num_heads, hd)).transpose(1, 2)
+        out = per_shard(functools.partial(flash_attention_plain,
+                                          causal=False), q, enc_k, enc_v)
+        return dense(p["wo"], flatten(out.transpose(1, 2), 2))
 
     def dec_block(p, x, enc):
         x = x + attn.attention_train(
@@ -325,7 +332,8 @@ def _build_encdec(cfg: ModelConfig) -> Model:
         ek, ev = encoder_kv(p["cross_attn"], enc)
         x = x + cross_attend(p["cross_attn"], layernorm(p["ln_x"], x),
                              ek, ev)
-        return x + gelu_mlp(p["mlp"], layernorm(p["ln2"], x))
+        x = x + gelu_mlp(p["mlp"], layernorm(p["ln2"], x))
+        return shard(x, ("pod", "data"), "model", None)
 
     dec_block = _maybe_remat(dec_block, cfg.remat)
 
@@ -341,6 +349,7 @@ def _build_encdec(cfg: ModelConfig) -> Model:
             x = dec_block(p, x, enc)
         x = layernorm(params["final_norm"], x)
         logits = unembed(params["embed"], x, pad_to=_pad_vocab(cfg))
+        logits = shard(logits, ("pod", "data"), None, "model")
         return logits, torch.zeros((), device=logits.device)
 
     def init_cache(batch: int, max_len: int, *,
@@ -434,8 +443,9 @@ def _build_xlstm(cfg: ModelConfig) -> Model:
                 p["mlstm"], rmsnorm(p["ln"], x, cfg.norm_eps),
                 num_heads=H, impl=cfg.mixer_impl)
         s = sb["slstm"]
-        return x + xlstm_mod.slstm_train(
+        x = x + xlstm_mod.slstm_train(
             s["slstm"], rmsnorm(s["ln"], x, cfg.norm_eps), num_heads=H)
+        return shard(x, ("pod", "data"), "model", None)
 
     # remat at the superblock level, as the reference's: the mLSTM states
     # are recomputed in the backward pass
@@ -443,11 +453,13 @@ def _build_xlstm(cfg: ModelConfig) -> Model:
 
     def forward(params, batch):
         """tokens (B, T) -> f32 logits (B, T, padded vocab), zero aux."""
-        x = embed(params["embed"], batch["tokens"])
+        x = shard(embed(params["embed"], batch["tokens"]),
+                  ("pod", "data"), "model", None)
         for sb in params["superblocks"]:
             x = superblock(sb, x)
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         logits = unembed(params["embed"], x, pad_to=_pad_vocab(cfg))
+        logits = shard(logits, ("pod", "data"), None, "model")
         return logits, torch.zeros((), device=logits.device)
 
     def init_cache(batch: int, max_len: int, *,
@@ -560,19 +572,21 @@ def _build_zamba(cfg: ModelConfig) -> Model:
             head_dim=hd, rope_freqs=None, window=cfg.window,
             impl=cfg.attn_impl)
         x = x + h
-        return x + mlp(shared["mlp"], rmsnorm(shared["ln2"], x,
-                                               cfg.norm_eps))
+        x = x + mlp(shared["mlp"], rmsnorm(shared["ln2"], x, cfg.norm_eps))
+        return shard(x, ("pod", "data"), "model", None)
 
     def forward(params, batch):
         """tokens (B, T) -> f32 logits (B, T, padded vocab), with the
         padded columns 0, and a zero auxiliary loss."""
-        x = embed(params["embed"], batch["tokens"])
+        x = shard(embed(params["embed"], batch["tokens"]),
+                  ("pod", "data"), "model", None)
         for blocks in params["superblocks"]:
             x = mamba_blocks(x, blocks)
             x = shared_attn_apply(params["shared"], x)
         x = mamba_blocks(x, params["tail_blocks"])
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         logits = unembed(params["embed"], x, pad_to=_pad_vocab(cfg))
+        logits = shard(logits, ("pod", "data"), None, "model")
         return logits, torch.zeros((), device=logits.device)
 
     def init_cache(batch: int, max_len: int, *,

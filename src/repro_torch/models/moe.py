@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from .layers import _normal, dense, init_dense, silu
+from .sharding import replicated, shard
 
 Params = dict
 
@@ -50,8 +51,8 @@ def _counts(idx: torch.Tensor, n: int) -> torch.Tensor:
     ``minlength=n`` for indices below n, as a scatter-add of ones, whose
     output shape does not depend on the data (so it also runs on the meta
     device, which the dry run traces on)."""
-    return torch.zeros(n, dtype=torch.int64, device=idx.device).scatter_add_(
-        0, idx, torch.ones_like(idx))
+    idx = replicated(idx)   # scatter_add_: no sharded strategy
+    return idx.new_zeros(n).scatter_add_(0, idx, torch.ones_like(idx))
 
 
 def route(p: Params, xf: torch.Tensor, *, num_experts: int, top_k: int,
@@ -95,25 +96,38 @@ def moe_layer(p: Params, x: torch.Tensor, *, num_experts: int, top_k: int,
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, T, d) -> (out in x's dtype, f32 aux loss)."""
     B, T, d = x.shape
-    xf = x.reshape(B * T, d)
+    # tokens, and their gradient, over the batch axes only: a (B * T) dim
+    # split over two mesh dims is one DTensor cannot view apart again
+    xf = shard(shard(x, ("pod", "data"), None, None).reshape(B * T, d),
+               ("pod", "data"), None)
     r = route(p, xf, num_experts=num_experts, top_k=top_k,
               capacity_factor=capacity_factor)
     keep, slot, C = r["keep"], r["slot"], r["capacity"]
 
-    # gather tokens into (E * C, d); a dropped pair adds zero to slot 0
-    gathered = torch.where(keep[:, None], xf[r["sorted_token"]],
-                           xf.new_zeros(()))
-    buf = x.new_zeros(num_experts * C, d).index_add_(0, slot, gathered)
-    buf = buf.reshape(num_experts, C, d)
+    # gather tokens into (E * C, d); a dropped pair adds zero to slot 0.
+    # New buffers are built whole (under a mesh: replicated) and the
+    # expert axis pinned over model where the reference pins it.
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    gathered = shard(torch.where(keep[:, None], xf[r["sorted_token"]], zero),
+                     ("pod", "data"), None)
+    # index_add: no sharded strategy (torch 2.11 runs it on the shards)
+    buf = torch.zeros(num_experts * C, d, dtype=x.dtype,
+                      device=x.device).index_add(0, slot,
+                                                 replicated(gathered))
+    buf = shard(buf.reshape(num_experts, C, d), "model", None, None)
 
     h = silu(torch.einsum("ecd,edf->ecf", buf, p["wi_gate"].to(x.dtype)))
     h = h * torch.einsum("ecd,edf->ecf", buf, p["wi_up"].to(x.dtype))
-    out_flat = torch.einsum("ecf,efd->ecd", h, p["wo"].to(x.dtype)
-                            ).reshape(num_experts * C, d)
+    h = shard(h, "model", None, None)
+    out_e = shard(torch.einsum("ecf,efd->ecd", h, p["wo"].to(x.dtype)),
+                  "model", None, None)
+    out_flat = out_e.reshape(num_experts * C, d)
 
     # combine: f32 gate-weighted outputs summed in f32 and rounded once
     # to x's dtype, as the reference's compiled scatter-add sums them
-    contrib = out_flat[slot].float() * (r["sorted_gate"] * keep)[:, None]
-    combined = contrib.new_zeros(B * T, d).index_add_(
-        0, r["sorted_token"], contrib)
+    expert_out = shard(out_flat[slot], ("pod", "data"), None)
+    contrib = expert_out.float() * (r["sorted_gate"] * keep)[:, None]
+    combined = torch.zeros(B * T, d, dtype=contrib.dtype,
+                           device=x.device).index_add(
+        0, r["sorted_token"], replicated(contrib))   # index_add, as above
     return combined.to(x.dtype).reshape(B, T, d), r["aux"]

@@ -13,17 +13,28 @@ the two entry for entry. All rules are divisibility-checked against the
 mesh in force (:func:`use_mesh`): an axis that does not divide the dim is
 dropped. The rules read paths of the reference's stacked layout
 (``layers/attn/wq/kernel`` with a leading layer dim), which
-``convert.reference_layout`` gives the port's per-layer trees. The port
-runs unpartitioned, so :func:`shard` constrains nothing.
+``convert.reference_layout`` gives the port's per-layer trees.
+
+Partitioning is ``torch.distributed`` DTensor over a ``DeviceMesh``:
+:func:`placements` turns a spec into DTensor placements, :func:`place`
+puts a parameter or cache tree on the mesh by the rules (a leaf under k
+lists of layers takes its stacked leaf's spec without the first k
+entries), and under :func:`partitioned` :func:`shard` redistributes an
+activation to its spec, as the reference's ``with_sharding_constraint``
+does. With no mesh in force, or on a plain tensor, :func:`shard` returns
+its input as it is.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
 import re
+import weakref
 from typing import Any, Iterator, Optional, Sequence
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import implicit_replication
 
 from ..tree import tree_map_with_path
 
@@ -60,6 +71,11 @@ def use_mesh(mesh: Any) -> Iterator[Any]:
         _MESH.reset(token)
 
 
+def mesh_in_force() -> Any:
+    """The mesh :func:`use_mesh` put in force, or None."""
+    return _MESH.get()
+
+
 def _mesh_axis_sizes() -> dict[str, int]:
     mesh = _MESH.get()
     return {} if mesh is None else axis_sizes(mesh)
@@ -85,12 +101,272 @@ def _resolve(spec_axes: Sequence, shape: Sequence[int],
     return tuple(out)
 
 
+_FLAT = ("pod", "data")
+_FLAT_NAME = "pod_data"
+_flat_meshes: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def device_mesh(mesh: Any) -> Any:
+    """The ``DeviceMesh`` a mesh's DTensors live on: ``mesh`` itself, or,
+    where it has both ``pod`` and ``data``, a mesh over the same ranks
+    with those two dims flattened pod-major into one, ``pod_data``. Every
+    rule names the two together (``BATCH_AXES``), and a dim split over
+    ``("pod", "data")`` is a split over that flat dim, as a
+    ``PartitionSpec`` splits it; DTensor plans each new redistribution
+    over every order of a 3-D mesh's dims, which took it a minute an op
+    on a (2, 2, 2) mesh against under a second on the flat (4, 2)."""
+    names = tuple(mesh.mesh_dim_names)
+    if not set(_FLAT) <= set(names):
+        return mesh
+    if mesh not in _flat_meshes:
+        from torch.distributed.device_mesh import DeviceMesh
+        if names[:2] != _FLAT:
+            raise ValueError(f"mesh axes {names}: pod and data lead")
+        ranks = mesh.mesh.reshape(-1, *mesh.mesh.shape[2:])
+        _flat_meshes[mesh] = DeviceMesh(mesh.device_type, ranks,
+                                        mesh_dim_names=(_FLAT_NAME,
+                                                        *names[2:]))
+    return _flat_meshes[mesh]
+
+
+def placements(spec: Spec, mesh: Any) -> list:
+    """The DTensor placements of ``spec`` on ``device_mesh(mesh)``: for
+    each of its dims, ``Shard(d)`` where tensor dim d's entry names that
+    axis (a leading ``("pod", "data")`` names the flat ``pod_data``), else
+    ``Replicate()``.
+
+    Raises:
+        ValueError: an axis the mesh lacks, one named twice, or an entry
+            that names pod or data alone on a mesh that has both.
+    """
+    names = list(device_mesh(mesh).mesh_dim_names)
+    out: list = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        key = list(axes)
+        if _FLAT_NAME in names and axes[:2] == _FLAT:
+            key = [_FLAT_NAME, *axes[2:]]
+        where = [names.index(a) if a in names else -1 for a in key]
+        if -1 in where or where != sorted(where) or any(
+                isinstance(out[i], Shard) for i in where):
+            raise ValueError(f"spec {spec} on mesh axes {names}")
+        for i in where:
+            out[i] = Shard(dim)
+    return out
+
+
+def _spec_at(specs: Any, path: tuple) -> Spec:
+    for key in path:
+        specs = specs[key]
+    return specs
+
+
+def layer_specs(tree: Any, stacked: Any) -> Any:
+    """The spec of each tensor leaf of a port tree, from ``stacked``, the
+    specs of its reference layout (``convert.reference_layout``): a leaf
+    under k lists of layers takes its stacked leaf's spec without the
+    first k entries. Non-tensor leaves (a cache's ``len``) get None.
+
+    The reference's rules may put an axis on a layer dim (a rule of the
+    wrong arity on zamba2's twice-stacked superblocks: ``mamba/out_proj``
+    over ``model`` wherever that axis divides the 6 blocks of a
+    superblock, as on a (2, 2, 2) mesh). A list of layers cannot be split,
+    so that axis is dropped and the port's leaf stays whole along it."""
+    def spec_for(path, leaf):
+        if not isinstance(leaf, torch.Tensor):
+            return None
+        keys = tuple(k for k in path if not isinstance(k, int))
+        return tuple(_spec_at(stacked, keys)[len(path) - len(keys):])
+    return tree_map_with_path(spec_for, tree)
+
+
+def place(tree: Any, specs: Any, mesh: Any) -> Any:
+    """Each tensor leaf of ``tree`` as a DTensor on ``mesh`` under its spec
+    in ``specs`` (a tree of the same structure, as :func:`layer_specs`
+    gives). Every rank holds the whole tensor, so each takes its shard
+    where it is, with no communication."""
+    def put(path, leaf):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        return distribute_tensor(leaf, mesh, _spec_at(specs, path))
+    return tree_map_with_path(put, tree)
+
+
+def distribute_tensor(x: torch.Tensor, mesh: Any, spec: Spec) -> DTensor:
+    """``x``, whole on every rank, as a DTensor of ``spec`` on ``mesh``:
+    each rank keeps its own slice (no communication)."""
+    from torch.distributed.tensor import distribute_tensor as dist_tensor
+    return dist_tensor(x, device_mesh(mesh), placements(spec, mesh),
+                       src_data_rank=None)
+
+
+def place_params(params: Any, mesh: Any) -> Any:
+    """A port parameter tree on ``mesh`` by the reference's rules
+    (:func:`param_specs` over its reference layout)."""
+    from .convert import reference_layout
+    with use_mesh(mesh):
+        specs = param_specs(reference_layout(params))
+    return place(params, layer_specs(params, specs), mesh)
+
+
+def place_cache(cache: Any, mesh: Any) -> Any:
+    """A port cache tree on ``mesh`` by the reference's rules
+    (:func:`cache_specs` over its reference layout)."""
+    from .convert import reference_layout
+    with use_mesh(mesh):
+        specs = cache_specs(reference_layout(cache))
+    return place(cache, layer_specs(cache, specs), mesh)
+
+
+@contextlib.contextmanager
+def partitioned(mesh: Any) -> Iterator[Any]:
+    """The block runs partitioned on ``mesh``: the specs resolve against
+    it, :func:`shard` constrains, and a plain tensor that the model builds
+    in its body (RoPE tables, positions, masks: the same on every rank)
+    enters a DTensor op as replicated."""
+    with use_mesh(mesh), implicit_replication():
+        yield mesh
+
+
+def _replicate_where(x: torch.Tensor, which) -> torch.Tensor:
+    """A DTensor with each placement ``which`` picks made ``Replicate()``
+    (the collectives that takes are issued, and counted); a plain tensor,
+    or a DTensor with nothing picked, as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    where = [Replicate() if which(p) else p for p in x.placements]
+    if where == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, where)
+
+
+def replicated(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered whole onto every rank, for an op that has no
+    sharded strategy, as GSPMD gathers for an op it cannot partition."""
+    return _replicate_where(x, lambda p: True)
+
+
+def settled(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor with its partial sums added up (all-reduced), so that the
+    next ops read a value, not a pending sum (torch 2.11 loses the mask of
+    a vocab-sharded embedding's partial rows once they are reduced, and a
+    second reduction fails)."""
+    return _replicate_where(x, lambda p: p.is_partial())
+
+
+def _gathered(x: torch.Tensor, dims) -> torch.Tensor:
+    """A DTensor with every mesh dim that shards one of ``dims``
+    replicated."""
+    return _replicate_where(
+        x, lambda p: isinstance(p, Shard) and p.dim in dims)
+
+
+def unflatten(x: torch.Tensor, dim: int, sizes: tuple) -> torch.Tensor:
+    """``x.unflatten(dim, sizes)``. A DTensor whose ``dim`` is sharded over
+    more ranks than ``sizes[0]`` divides into (8 kv heads of 128 features
+    over a model axis of 16) has that dim gathered first, as GSPMD
+    reshards there: DTensor cannot split a sharded dim unevenly. The
+    result's gradient is pinned to its placements (see :func:`flatten`)."""
+    if not isinstance(x, DTensor):
+        return x.unflatten(dim, sizes)
+    dim = dim % x.ndim
+    ranks = 1
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            ranks *= x.device_mesh.size(i)
+    if sizes[0] % ranks:
+        x = _gathered(x, (dim,))
+    return pinned(x.unflatten(dim, sizes))
+
+
+def flatten(x: torch.Tensor, start: int, end: int = -1) -> torch.Tensor:
+    """``x.flatten(start, end)``. On a DTensor the merged dims after the
+    first are gathered where they are sharded first (DTensor in torch 2.11
+    cannot view-flatten a dim sharded past the first), and the result's
+    gradient is pinned to the placements the merge gave it: a gradient
+    that comes back sharded otherwise on the merged dim (4 heads' features
+    over a model axis of 16) cannot be split into the heads again."""
+    if not isinstance(x, DTensor):
+        return x.flatten(start, end)
+    start, end = start % x.ndim, end % x.ndim
+    return pinned(_gathered(x, range(start + 1, end + 1)).flatten(start,
+                                                                   end))
+
+
+def pinned(y: torch.Tensor) -> torch.Tensor:
+    """A DTensor whose gradient comes back on its own placements (see
+    :func:`flatten`); a plain tensor as it is."""
+    if not isinstance(y, DTensor):
+        return y
+    return _Constrain.apply(y, tuple(y.placements))
+
+
+def rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` for a product that folds its leading dims into rows: on a
+    DTensor, those dims after the first gathered where they are sharded,
+    as sequence parallelism gathers the sequence before a projection
+    (DTensor in torch 2.11 cannot fold a dim sharded past the first). The
+    product's gradient must come back unfolded alike: pin it
+    (:func:`pinned`)."""
+    if not isinstance(x, DTensor) or x.ndim <= 2:
+        return x
+    return _gathered(x, range(1, x.ndim - 1))
+
+
+def per_shard(fn, *tensors: torch.Tensor, dims: tuple = (0, 1)):
+    """``fn(*tensors)`` for a computation that is independent along
+    ``dims`` (attention over batch and heads): on DTensors, each rank runs
+    ``fn`` on its own slices of them, as GSPMD partitions a dot product
+    over its batch dims, with every other dim gathered first; plain
+    tensors go to ``fn`` as they are. The result has the first tensor's
+    placements on ``dims``."""
+    if not isinstance(tensors[0], DTensor):
+        return fn(*tensors)
+    from torch.distributed.tensor.experimental import local_map
+    first = tensors[0]
+    where = [p if isinstance(p, Shard) and p.dim in dims else Replicate()
+             for p in first.placements]
+    tensors = [t.redistribute(first.device_mesh, where) for t in tensors]
+    return local_map(fn, out_placements=where,
+                     in_placements=tuple(where for _ in tensors),
+                     device_mesh=first.device_mesh)(*tensors)
+
+
 def shard(x: torch.Tensor, *spec_axes) -> torch.Tensor:
-    """The reference's activation sharding constraint. The port's programs
-    are not partitioned, so there is nothing to constrain: ``x`` is
-    returned as it is."""
-    del spec_axes
-    return x
+    """The reference's activation sharding constraint: under a mesh, a
+    DTensor is redistributed to the spec (an axis that does not divide its
+    dim dropped, as the rules drop it), and its gradient back to the
+    placements it came with; with no mesh in force, or on a plain tensor,
+    ``x`` is returned as it is."""
+    mesh = _MESH.get()
+    if mesh is None or not isinstance(x, DTensor):
+        return x
+    where = placements(_resolve(spec_axes, x.shape, axis_sizes(mesh)), mesh)
+    return _Constrain.apply(x, tuple(where))
+
+
+class _Constrain(torch.autograd.Function):
+    """A DTensor redistributed to ``where``; its gradient made contiguous
+    and redistributed back to the input's placements, as the transpose of
+    the reference's constraint constrains the cotangent. Applied even where
+    the input already has ``where``, so the gradient is pinned. Contiguous
+    first because DTensor's redistribute of a strided tensor (a transposed
+    key's gradient) returns a contiguous local shard under the input's
+    global strides, and a later view then fails on the shard."""
+
+    @staticmethod
+    def forward(ctx, x: DTensor, where: tuple) -> DTensor:
+        # a partial sum's gradient is the same on every rank
+        ctx.placements = [Replicate() if p.is_partial() else p
+                          for p in x.placements]
+        return x.redistribute(x.device_mesh, where)
+
+    @staticmethod
+    def backward(ctx, grad: DTensor):
+        grad = grad.contiguous()
+        return grad.redistribute(grad.device_mesh, ctx.placements), None
 
 
 def batch_spec(x_shape: Sequence[int]) -> Spec:

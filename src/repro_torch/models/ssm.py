@@ -23,6 +23,7 @@ from ..kernels import (chunked_linear_attention, linear_attention,
                        linear_attention_plain)
 from .layers import (_normal, dense, init_dense, init_rmsnorm, rmsnorm,
                      silu, softplus)
+from .sharding import flatten, shard, unflatten
 
 Params = dict
 
@@ -94,14 +95,16 @@ def mamba2_train(p: Params, x: torch.Tensor, *, d_state: int,
     log_decay = -dt * A                                          # (B,T,H)
 
     # head-major layout for the kernel: (B*H, T, .)
-    xh = xs.reshape(Bsz, T, heads, head_dim)
+    xh = unflatten(xs, -1, (heads, head_dim))
     q = Cmat[:, :, None, :].expand(Bsz, T, heads, d_state)
     k = Bmat[:, :, None, :] * dt[..., None].to(Bmat.dtype)
 
     def hm(a):  # (B,T,H,D) -> (B*H,T,D), contiguous
+        # batch-parallel SSD, as the reference pins it (see xlstm.py)
+        a = shard(a, ("pod", "data"), None, None, None)
         return a.transpose(1, 2).reshape(Bsz * heads, T, a.shape[-1])
 
-    ld = log_decay.transpose(1, 2).reshape(Bsz * heads, T)
+    ld = hm(log_decay[..., None])[..., 0]
     if impl == "pallas":
         y = linear_attention(hm(q), hm(k), hm(xh), ld)
     elif impl == "ref":
@@ -111,9 +114,9 @@ def mamba2_train(p: Params, x: torch.Tensor, *, d_state: int,
     else:
         raise ValueError(f"unknown mixer_impl {impl!r}; the port has "
                          f"'pallas', 'ref' and 'chunked'")
-    y = y.reshape(Bsz, heads, T, head_dim).transpose(1, 2)       # (B,T,H,D)
+    y = unflatten(y, 0, (Bsz, heads)).transpose(1, 2)           # (B,T,H,D)
     y = y + p["D"].to(y.dtype)[None, None, :, None] * xh
-    y = y.reshape(Bsz, T, d_inner)
+    y = flatten(y, 2)
     y = rmsnorm(p["norm"], y) * silu(z)
     return dense(p["out_proj"], y)
 
@@ -160,7 +163,7 @@ def mamba2_decode(p: Params, x: torch.Tensor, cache: Params, *,
     A = torch.exp(p["A_log"])
     decay = torch.exp(-dt * A)[:, 0, :]                          # (B,H)
 
-    xh = xs.reshape(Bsz, heads, head_dim).float()
+    xh = unflatten(xs[:, 0], -1, (heads, head_dim)).float()
     Bv = Bm[:, 0, :].float()                                     # (B,S)
     Cv = Cm[:, 0, :].float()
     dtv = dt[:, 0, :]                                            # (B,H)
@@ -170,6 +173,6 @@ def mamba2_decode(p: Params, x: torch.Tensor, cache: Params, *,
     S = S + (dtv[..., None] * Bv[:, None, :])[..., None] * xh[:, :, None, :]
     y = torch.einsum("bs,bhsd->bhd", Cv, S)
     y = y + p["D"][None, :, None] * xh
-    y = y.reshape(Bsz, 1, d_inner).to(x.dtype)
+    y = flatten(y, 1)[:, None].to(x.dtype)
     y = rmsnorm(p["norm"], y) * silu(z)
     return dense(p["out_proj"], y), {"state": S, "conv": new_conv}

@@ -27,6 +27,7 @@ from ..kernels import (chunked_linear_attention, linear_attention,
                        linear_attention_plain)
 from .layers import (_normal, dense, init_dense, init_rmsnorm, rmsnorm,
                      sigmoid, silu, softplus)
+from .sharding import flatten, shard, unflatten
 
 Params = dict
 
@@ -70,20 +71,23 @@ def mlstm_train(p: Params, x: torch.Tensor, *, num_heads: int,
 
     u = dense(p["up"], x)
     gate = dense(p["up_gate"], x)
-    q = dense(p["wq"], u).reshape(B, T, num_heads, hd)
-    k = dense(p["wk"], u).reshape(B, T, num_heads, hd) * hd ** -0.5
-    v = dense(p["wv"], u).reshape(B, T, num_heads, hd)
+    q = unflatten(dense(p["wq"], u), -1, (num_heads, hd))
+    k = unflatten(dense(p["wk"], u), -1, (num_heads, hd)) * hd ** -0.5
+    v = unflatten(dense(p["wv"], u), -1, (num_heads, hd))
     gif = dense(p["w_if"], u).float()
     i_gate = sigmoid(gif[..., :num_heads])                      # (B,T,H)
     log_f = _log_sigmoid(gif[..., num_heads:])                  # (B,T,H)
 
     def hm(a):  # (B,T,H,D) -> (B*H,T,D), contiguous
+        # the recurrence runs batch-parallel, as the reference pins it:
+        # the merged (B*H) dim cannot carry the heads' model sharding
+        a = shard(a, ("pod", "data"), None, None, None)
         return a.transpose(1, 2).reshape(B * num_heads, T, a.shape[-1])
 
     # fold the input gate into k; a ones-column in v gives the normaliser
     k_g = k * i_gate[..., None].to(k.dtype)
     v_aug = torch.cat([v, v.new_ones(B, T, num_heads, 1)], dim=-1)
-    ld = log_f.transpose(1, 2).reshape(B * num_heads, T)
+    ld = hm(log_f[..., None])[..., 0]
     if impl == "pallas":
         out = linear_attention(hm(q), hm(k_g), hm(v_aug), ld)
     elif impl == "ref":
@@ -95,7 +99,7 @@ def mlstm_train(p: Params, x: torch.Tensor, *, num_heads: int,
                          f"'pallas', 'ref' and 'chunked'")
     num, den = out[..., :hd], out[..., hd:]
     h = num / torch.clamp(torch.abs(den), min=1.0)
-    h = h.reshape(B, num_heads, T, hd).transpose(1, 2).reshape(B, T, d_inner)
+    h = flatten(unflatten(h, 0, (B, num_heads)).transpose(1, 2), 2)
     h = rmsnorm(p["norm"], h) * silu(gate)
     return dense(p["down"], h)
 
@@ -119,9 +123,10 @@ def mlstm_decode(p: Params, x: torch.Tensor, cache: Params, *,
 
     u = dense(p["up"], x)
     gate = dense(p["up_gate"], x)
-    q = dense(p["wq"], u).reshape(B, num_heads, hd).float()
-    k = (dense(p["wk"], u) * hd ** -0.5).reshape(B, num_heads, hd).float()
-    v = dense(p["wv"], u).reshape(B, num_heads, hd).float()
+    q = unflatten(dense(p["wq"], u)[:, 0], -1, (num_heads, hd)).float()
+    k = unflatten((dense(p["wk"], u) * hd ** -0.5)[:, 0], -1,
+                  (num_heads, hd)).float()
+    v = unflatten(dense(p["wv"], u)[:, 0], -1, (num_heads, hd)).float()
     gif = dense(p["w_if"], u).float()[:, 0]
     i_g = sigmoid(gif[:, :num_heads])                           # (B,H)
     f_g = sigmoid(gif[:, num_heads:])
@@ -132,7 +137,7 @@ def mlstm_decode(p: Params, x: torch.Tensor, cache: Params, *,
     num = torch.einsum("bhk,bhkv->bhv", q, C)
     den = torch.einsum("bhk,bhk->bh", q, n)
     h = num / torch.clamp(torch.abs(den), min=1.0)[..., None]
-    h = h.reshape(B, 1, d_inner).to(x.dtype)
+    h = flatten(h, 1)[:, None].to(x.dtype)
     h = rmsnorm(p["norm"], h) * silu(gate)
     return dense(p["down"], h), {"C": C, "n": n}
 
@@ -181,10 +186,14 @@ def _slstm_step(p: Params, st: Params, zx, ix, fx, ox) -> Params:
 
 
 def _slstm_pre(p: Params, x: torch.Tensor, num_heads: int):
-    """The four f32 pre-activations of x (B, T, d): (B, T, H, hd) each."""
-    B, T, d_model = x.shape
-    hd = d_model // num_heads
-    return [dense(p["w_" + g], x).reshape(B, T, num_heads, hd).float()
+    """The four f32 pre-activations of x (B, T, d): (B, T, H, hd) each,
+    over the batch axes only, as the reference pins them before its time
+    loop (a model-sharded hd would cost the recurrent mix a collective
+    every step)."""
+    hd = x.shape[-1] // num_heads
+    return [shard(unflatten(dense(p["w_" + g], x), -1,
+                            (num_heads, hd)).float(),
+                  ("pod", "data"), None, None, None)
             for g in "zifo"]
 
 
@@ -198,15 +207,14 @@ def slstm_train(p: Params, x: torch.Tensor, *,
     for t in range(T):
         st = _slstm_step(p, st, *(a[:, t] for a in pre))
         hs.append(st["h"])
-    h = torch.stack(hs, dim=1).reshape(B, T, d_model).to(x.dtype)
+    h = flatten(torch.stack(hs, dim=1), 2).to(x.dtype)
     return dense(p["down"], rmsnorm(p["norm"], h))
 
 
 def slstm_decode(p: Params, x: torch.Tensor, state: Params, *,
                  num_heads: int) -> tuple[torch.Tensor, Params]:
     """One-token step. x: (B, 1, d_model)."""
-    B, _, d_model = x.shape
     st = _slstm_step(p, state, *(a[:, 0] for a in
                                  _slstm_pre(p, x, num_heads)))
-    h = st["h"].reshape(B, 1, d_model).to(x.dtype)
+    h = flatten(st["h"], 1)[:, None].to(x.dtype)
     return dense(p["down"], rmsnorm(p["norm"], h)), st

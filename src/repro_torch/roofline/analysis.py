@@ -5,14 +5,17 @@
     memory term     = HBM_bytes_per_device / HBM_bw
     collective term = collective_bytes_per_device / link_bw
 
-FLOPs and bytes come from the analytic accounting in ``flops.py``; the
-FLOPs ``FlopCounterMode`` counts in a trace of the step ride along as
-``traced_flops``. :func:`collective_bytes` reads the per-device collective
-bytes of a partitioned program's HLO text (the reference's parser: result
-shapes of every all-gather / all-reduce / reduce-scatter / all-to-all /
+FLOPs and bytes come from the analytic accounting in ``flops.py``.
+:func:`collective_bytes` reads the per-device collective bytes of a
+partitioned program's HLO text (the reference's parser: result shapes of
+every all-gather / all-reduce / reduce-scatter / all-to-all /
 collective-permute, times the trip counts of the ``xscan[N]`` loops
-around them). The port traces an unpartitioned program, so its dry run
-has no HLO to read and reports no collective bytes.
+around them). The port has no HLO: :class:`TraceCounter` reads the same
+terms off a traced step on one rank of a DTensor mesh, the bytes of each
+collective's result by the same kinds, with the FLOPs that rank runs
+(``traced_flops``) and the peak of the bytes it holds live
+(``hbm_per_dev``). The port's layer loops are unrolled in the trace, so
+no trip count multiplies.
 
 Hardware constants: NVIDIA's H100 datasheet, SXM part, dense rates at the
 700 W limit: 989 TFLOP/s bf16 on the tensor cores, 3.35 TB/s of HBM3, and
@@ -23,7 +26,13 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Optional
+import weakref
+from typing import Any, Optional
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
+from torch.utils.flop_counter import FlopCounterMode
 
 PEAK_FLOPS = 989e12          # bf16 dense, per card
 HBM_BW = 3.35e12             # bytes/s per card
@@ -84,6 +93,97 @@ def collective_bytes(hlo_text: str) -> dict[str, float]:
     return out
 
 
+# functional collectives, as DTensor issues them, by the HLO kind the
+# reference's parser files them under
+_TRACED_KINDS = {
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_reduce": "all-reduce",
+    "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_reduce_coalesced_": "all-reduce",
+    "all_to_all_single": "all-to-all",
+}
+_FUNCOL = ("_c10d_functional", "c10d_functional")
+_NOT_COLLECTIVES = ("wait_tensor", "_wrap_tensor_autograd")
+
+
+class TraceCounter(TorchDispatchMode):
+    """What one rank runs in a traced step, read op by op: the bytes of
+    each collective's result by kind (``collectives``, as
+    :func:`collective_bytes` reads an HLO instruction's left-hand shape),
+    the FLOPs of its ops (``flops``, by ``FlopCounterMode``'s formulas)
+    and the peak of the bytes its live storages hold (``peak_bytes``;
+    :meth:`hold` counts the step's inputs first). On a DTensor the mode
+    steps aside, so it sees the local ops and collectives DTensor runs
+    for this rank; on plain tensors it sees the whole step. Storages are
+    counted once however many views share them, and freed when the last
+    view dies. Ops that DTensor runs on fake global tensors to derive an
+    output's shape are not counted.
+    """
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.collectives: dict[str, float] = {}
+        self.flops = 0
+        self.live_bytes = 0
+        self.peak_bytes = 0
+        self._formulas = FlopCounterMode(display=False).flop_registry
+        self._storages: dict[int, weakref.ref] = {}
+
+    def _track(self, tensor: torch.Tensor) -> None:
+        storage = tensor.untyped_storage()
+        key = id(storage)
+        ref = self._storages.get(key)
+        if ref is not None and ref() is storage:
+            return
+        nbytes = storage.nbytes()
+
+        def freed(_, key=key, nbytes=nbytes):
+            self.live_bytes -= nbytes
+            self._storages.pop(key, None)
+        self._storages[key] = weakref.ref(storage, freed)
+        self.live_bytes += nbytes
+        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+
+    def hold(self, tree: Any) -> None:
+        """Count the storages of ``tree``'s tensors (a DTensor's local
+        shard) as live: the step's parameters, state and inputs."""
+        from torch.distributed.tensor import DTensor
+        for leaf in tree_leaves(tree):
+            if isinstance(leaf, DTensor):
+                leaf = leaf.to_local()
+            if isinstance(leaf, torch.Tensor):
+                self._track(leaf)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented          # DTensor runs, then we see it
+        out = func(*args, **(kwargs or {}))
+        if torch._C._get_dispatch_mode(
+                torch._C._TorchDispatchModeKey.FAKE) is not None:
+            # DTensor deriving a global shape under FakeTensorMode: no op
+            # of this rank's program
+            return out
+        packet = func._overloadpacket
+        if packet in self._formulas:
+            self.flops += self._formulas[packet](*args, **(kwargs or {}),
+                                                 out_val=out)
+        results = [t for t in tree_leaves(out)
+                   if isinstance(t, torch.Tensor)]
+        if func.namespace in _FUNCOL and \
+                packet.__name__ not in _NOT_COLLECTIVES:
+            kind = _TRACED_KINDS.get(packet.__name__, packet.__name__)
+            self.collectives[kind] = self.collectives.get(kind, 0.0) + \
+                float(sum(t.numel() * t.element_size() for t in results))
+        for t in results:
+            self._track(t)
+        return out
+
+
 @dataclasses.dataclass
 class Roofline:
     arch: str
@@ -92,11 +192,11 @@ class Roofline:
     chips: int
     flops_per_dev: float          # analytic, loop-aware
     bytes_per_dev: float          # analytic HBM traffic model
-    coll_bytes_per_dev: float     # HLO-parsed, xscan-corrected
+    coll_bytes_per_dev: float     # one rank's, from its traced step
     coll_breakdown: dict[str, float]
     model_flops: float            # 6·N·D (train) / 2·N·D (serve), global
-    traced_flops: float = 0.0     # FlopCounterMode over the traced step
-    hbm_per_dev: Optional[float] = None   # compiler's footprint, if any
+    traced_flops: float = 0.0     # one rank's FLOPs in the traced step
+    hbm_per_dev: Optional[float] = None   # its traced peak of live bytes
 
     @property
     def t_compute(self) -> float:

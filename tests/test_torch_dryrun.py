@@ -7,10 +7,13 @@ fields. Here: the inputs, ``GRAD_ACCUM``, the model FLOPs and the
 (parameter count, per-device state, the roofline's FLOPs and bytes, the
 model FLOPs, the FSDP decision) equal what the reference's ``run_cell``
 computes for the same cell and layout, its specs evaluated on abstract
-meshes; full-width cells are traced at their global shapes; every family's
-reduced config runs train, prefill and decode (the port's counterpart of
-``tests/test_dryrun_small.py``, without the compile); the CLIs run. All
-equalities are exact: the same arithmetic on the same shapes.
+meshes; full-width cells are traced partitioned at their global shapes on
+the production meshes, with collective bytes and a footprint, and on the
+card's layout unpartitioned, with neither collectives nor a process group;
+every family's reduced config runs train, prefill and decode (the port's
+counterpart of ``tests/test_dryrun_small.py``, without the compile); the
+CLIs run. All equalities are exact: the same arithmetic on the same
+shapes. ``tests/test_torch_partition.py`` holds the partitioned path.
 """
 import dataclasses
 import json
@@ -36,7 +39,7 @@ from repro_torch.configs import ARCH_IDS, SHAPES, get_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import dryrun
 from repro_torch.launch import train as train_cli
-from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.mesh import MeshLayout, make_mesh
 from repro_torch.models import sharding
 
 # the reference's dry-run module sets XLA_FLAGS for 512 host devices when
@@ -128,17 +131,26 @@ def test_full_width_cell_traces_and_accounts_as_the_reference(arch, shape,
     assert sharding._FSDP == fsdp
     assert (got["arch"], got["shape"], got["mesh"]) == (arch, shape, mesh)
     assert got["traced_flops"] > 0 and got["trace_seconds"] >= 0
-    assert (got["coll_bytes_per_dev"], got["coll_breakdown"],
-            got["hbm_per_dev"], got["coll_source"]) == (
-        0.0, {}, None, "none (unpartitioned trace)")
+    # partitioned on a fake group of the mesh's ranks: rank 0's collective
+    # bytes and its peak of live bytes, inputs and state included
+    assert got["coll_source"] == dryrun.COLL_SOURCES["partitioned"]
+    assert got["coll_bytes_per_dev"] == sum(
+        got["coll_breakdown"].values()) > 0
+    assert got["hbm_per_dev"] >= got["state_bytes_per_dev"]
+    assert not torch.distributed.is_initialized()
     if SHAPES[shape].kind == "decode" and get_config(arch).family in (
             "dense", "vlm", "encdec"):
-        # one token against the cache: the trace's FLOPs are the analytic
-        # count's to a few percent (MoE also computes its capacity's empty
-        # slots; for the recurrent families the count takes the chunked
-        # form's per-token cost, which a decode step does not run)
-        assert got["traced_flops"] == pytest.approx(
+        # one token against the cache: the whole step's trace (the card's
+        # layout) is the analytic count's to a few percent (MoE also
+        # computes its capacity's empty slots; for the recurrent families
+        # the count takes the chunked form's per-token cost, which a decode
+        # step does not run), and one rank runs at least its share of it
+        # and at most all of it
+        whole = dryrun.run_cell(arch, shape, "card", verbose=False)
+        assert whole["traced_flops"] == pytest.approx(
             got["flops_per_dev"] * got["chips"], rel=0.05)
+        assert got["flops_per_dev"] * 0.95 <= got["traced_flops"] <= \
+            whole["traced_flops"]
 
 
 def test_card_mesh_is_one_device_and_starts_no_process_group():
@@ -147,6 +159,12 @@ def test_card_mesh_is_one_device_and_starts_no_process_group():
     assert {k: got[k] for k in ANALYTIC} == want
     assert got["chips"] == 1 and got["mesh"] == "card"
     assert not torch.distributed.is_initialized()
+    # one device: no collective, the whole step's footprint and FLOPs
+    assert (got["coll_bytes_per_dev"], got["coll_breakdown"],
+            got["coll_source"]) == (0.0, {}, dryrun.COLL_SOURCES["card"])
+    assert got["hbm_per_dev"] >= got["state_bytes_per_dev"]
+    assert got["traced_flops"] == pytest.approx(got["flops_per_dev"],
+                                                rel=0.05)
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
@@ -178,14 +196,18 @@ SMALL_SHAPES = {"train_4k": ShapeConfig("train_4k", 32, 8, "train"),
                                   "zamba2-7b", "xlstm-1.3b", "internvl2-1b",
                                   "whisper-medium"])
 def test_reduced_configs_run_every_kind(monkeypatch, arch):
-    """Every family's reduced config at B 8, T 32 (the reference's small
-    dry run's batch), train, prefill and decode."""
+    """Every family's reduced config at B 8, T 32 on the (2, 2, 2) mesh
+    (the reference's small dry run's batch and mesh), train, prefill and
+    decode, partitioned."""
     monkeypatch.setattr(dryrun, "get_config",
                         lambda a: get_config(a).reduced())
     monkeypatch.setattr(dryrun, "SHAPES", SMALL_SHAPES)
+    monkeypatch.setattr(dryrun, "layout_for", lambda m: MeshLayout(
+        ("pod", "data", "model"), (2, 2, 2)))
     for name, shape in SMALL_SHAPES.items():
-        got = dryrun.run_cell(arch, name, "single", verbose=False)
+        got = dryrun.run_cell(arch, name, "multi", verbose=False)
         assert got["status"] == "ok" and got["traced_flops"] > 0
+        assert got["chips"] == 8 and got["coll_bytes_per_dev"] > 0
         assert got["n_params"] == ref_count_params(
             ref_build(ref_config(arch).reduced()).init(
                 jax.random.PRNGKey(0)))
@@ -216,6 +238,12 @@ def test_train_cli_dry_run_runs_the_cell():
     assert (single["status"], single["mesh"], single["chips"]) == \
         ("ok", "single", 256)
     assert (multi["mesh"], multi["chips"]) == ("multi", 512)
+    card = train_cli.main(["--dry-run", "--arch", "qwen3-0.6b", "--shape",
+                           "decode_32k", "--mesh", "card"])
+    assert (card["mesh"], card["chips"], card["coll_bytes_per_dev"]) == \
+        ("card", 1, 0.0)
+    with pytest.raises(SystemExit):
+        train_cli.main(["--dry-run", "--multi-pod", "--mesh", "card"])
 
 
 def test_make_mesh_on_the_cpu():

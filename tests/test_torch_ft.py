@@ -198,10 +198,27 @@ def test_save_async_copies_before_it_returns(tmp_path):
 
 
 def test_restore_with_shardings_waits_for_the_mesh(tmp_path):
+    """Specs are placed on the ``DeviceMesh`` in force; without one there
+    is nothing to place them on."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import sharding
+
     ck = Checkpointer(str(tmp_path))
-    ck.save(0, {"x": torch.zeros(2)})
-    with pytest.raises(NotImplementedError, match="unpartitioned"):
-        ck.restore({"x": torch.zeros(2)}, shardings={"x": None})
+    ck.save(0, {"x": torch.arange(4.0), "s": np.asarray(3, np.int32)})
+    template = {"x": torch.zeros(4), "s": np.zeros((), np.int32)}
+    specs = {"x": ("model",), "s": ()}
+    with pytest.raises(ValueError, match="no DeviceMesh in force"):
+        ck.restore(template, shardings=specs)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cpu")
+        with sharding.use_mesh(mesh):
+            step, tree = ck.restore(template, shardings=specs)
+        assert step == 0 and tree["x"].placements == (
+            sharding.Replicate(), sharding.Shard(0))
+        assert torch.equal(tree["x"].to_local(), torch.arange(4.0))
+        assert int(tree["s"].to_local()) == 3
+    finally:
+        torch.distributed.destroy_process_group()
     with pytest.raises(FileNotFoundError):
         Checkpointer(str(tmp_path / "empty")).restore({"x": torch.zeros(2)})
 

@@ -1,0 +1,500 @@
+"""The port's partitioned path against the reference's and against itself
+unpartitioned, on the CPU.
+
+- Placements: on a (2, 2, 2) ``("pod", "data", "model")`` mesh (a fake
+  process group here; 8 host devices for the reference, in a subprocess
+  with its own XLA_FLAGS, as ``tests/test_dryrun_small.py`` runs it),
+  every parameter and cache leaf of reduced qwen3-0.6b, phi3.5-moe and
+  zamba2-7b has, on rank 0, the local shard shape that the reference's
+  ``NamedSharding(mesh, spec).shard_shape`` gives its stacked leaf, and
+  the local bytes sum to ``sharded_bytes``. The one leaf where the rules
+  shard a layer dim (zamba2's ``mamba/out_proj``, model over the 6 blocks
+  of a superblock) is held to that difference exactly.
+- Numbers: on a real group of 4 gloo ranks on the CPU, (2, 2)
+  ``("data", "model")``, reduced qwen3-0.6b in f32: the partitioned
+  ``prefill_logits`` and one ``loss`` with its gradients equal the
+  unpartitioned port's within 1e-5 of each leaf's scale (the unpartitioned
+  port is held to the reference elsewhere); a checkpoint written by the
+  reference's ``Checkpointer`` restores with ``shardings=`` onto that mesh,
+  each rank's local shard equal to its slice of the array.
+- The collective counter and the reference's ``collective_bytes`` agree on
+  one all-gather, one reduce-scatter and one all-reduce.
+- The dry run: each of the three families moves collective bytes on the
+  (2, 2, 2) mesh (the reference's small dry run requires it), the card's
+  layout none; no process group outlives a cell, and a fake group is
+  never started over a live one.
+- No DTensor reaches a hand kernel: every wrapper refuses one, and so does
+  a partitioned prefill on ``attn_impl="flash"``.
+"""
+import dataclasses
+import json
+import math
+import os
+import socket
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+import jax
+
+from repro.checkpoint import Checkpointer as RefCheckpointer
+from repro.configs import get_config as ref_config
+from repro.models import build_model as ref_build
+from repro.roofline import collective_bytes as ref_collective_bytes
+from repro_torch import kernels
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import MeshLayout, fake_mesh, make_mesh
+from repro_torch.models import (build_model, cache_specs, param_specs,
+                                reference_layout)
+from repro_torch.models import sharding
+from repro_torch.roofline import TraceCounter
+from repro_torch.tree import leaves_with_path
+
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+META = torch.device("meta")
+CUBE = MeshLayout(("pod", "data", "model"), (2, 2, 2))
+FAMILIES = ["qwen3-0.6b", "phi3.5-moe-42b-a6.6b", "zamba2-7b"]
+B, T = 8, 32
+# the rule of the wrong arity on zamba2's twice-stacked superblocks
+LAYER_DIM_SPLIT = "superblocks/mamba/out_proj/kernel"
+
+REFERENCE_SHARDS = r"""
+import os
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import json, sys
+import jax
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro.configs import get_config
+from repro.launch.mesh import make_mesh
+from repro.models import build_model, cache_specs, param_specs
+
+def shapes(structs, specs):
+    out = {}
+    for (path, leaf), spec in zip(
+            jax.tree_util.tree_leaves_with_path(structs),
+            jax.tree_util.tree_leaves(specs,
+                                      is_leaf=lambda x: isinstance(x, P))):
+        key = "/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                       for k in path)
+        out[key] = list(NamedSharding(mesh, spec).shard_shape(leaf.shape))
+    return out
+
+mesh = make_mesh((2, 2, 2), ("pod", "data", "model"))
+result = {}
+for arch in sys.argv[1:]:
+    model = build_model(get_config(arch).reduced())
+    with jax.sharding.set_mesh(mesh):
+        params = jax.eval_shape(model.init, jax.random.PRNGKey(0))
+        cache = jax.eval_shape(lambda: model.init_cache(%d, %d))
+        result[arch] = {"params": shapes(params, param_specs(params)),
+                        "cache": shapes(cache, cache_specs(cache))}
+print("RESULT" + json.dumps(result))
+""" % (B, T)
+
+
+def _env():
+    env = dict(os.environ, PYTHONPATH=SRC)
+    env.pop("XLA_FLAGS", None)
+    return env
+
+
+@pytest.fixture(scope="module")
+def reference_shards():
+    out = subprocess.run([sys.executable, "-c", REFERENCE_SHARDS, *FAMILIES],
+                         env=_env(), capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    line = [x for x in out.stdout.splitlines() if x.startswith("RESULT")][0]
+    return json.loads(line[len("RESULT"):])
+
+
+def _at(tree, key):
+    for k in key.split("/"):
+        tree = tree[k]
+    return tree
+
+
+def _without_len(tree):
+    """A cache's tree without its ``len`` counters (Python ints in the
+    port, which are not placed)."""
+    if isinstance(tree, dict):
+        return {k: _without_len(v) for k, v in tree.items() if k != "len"}
+    return tree
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_local_shards_are_the_references(arch, reference_shards):
+    model = build_model(get_config(arch).reduced())
+    trees = {"params": model.init(torch.Generator().manual_seed(0), META),
+             "cache": model.init_cache(B, T, device=META)}
+    with fake_mesh(CUBE) as mesh:
+        placed = {"params": sharding.place_params(trees["params"], mesh),
+                  "cache": sharding.place_cache(trees["cache"], mesh)}
+    assert not dist.is_initialized()
+    got_bytes = want_bytes = split_bytes = 0
+    for kind, tree in trees.items():
+        ref = reference_shards[arch][kind]
+        stacked = reference_layout(tree)
+        with sharding.use_mesh(CUBE):
+            specs = (param_specs if kind == "params" else cache_specs)(
+                stacked)
+        want_bytes += dryrun.sharded_bytes(_without_len(stacked),
+                                           _without_len(specs), CUBE)
+        seen = set()
+        for path, leaf in leaves_with_path(placed[kind]):
+            if not isinstance(leaf, DTensor):
+                assert path[-1] == "len"
+                continue
+            keys = [k for k in path if not isinstance(k, int)]
+            key, lists = "/".join(keys), len(path) - len(keys)
+            seen.add(key)
+            layers = list(_at(stacked, key).shape[:lists])
+            local = list(leaf.to_local().shape)
+            nbytes = math.prod(local) * leaf.element_size()
+            got_bytes += nbytes
+            want = ref[key]
+            assert want[lists:] == local, key
+            if want[:lists] != layers:
+                # model over the blocks of a superblock: a list of layers
+                # is not split, so each rank keeps every block whole
+                assert key == LAYER_DIM_SPLIT and \
+                    want[:lists] == [layers[0], layers[1] // 2]
+                split_bytes += nbytes / 2
+        for key in set(ref) - seen:      # counters, empty stacks
+            assert key.split("/")[-1] == "len" or 0 in ref[key], key
+    assert got_bytes == want_bytes + split_bytes
+    assert (split_bytes > 0) == (arch == "zamba2-7b")
+
+
+def test_placements_split_pod_data_pod_major():
+    with fake_mesh(CUBE) as mesh:
+        flat = sharding.device_mesh(mesh)
+        assert flat.mesh_dim_names == ("pod_data", "model")
+        assert flat.mesh.tolist() == torch.arange(8).reshape(4, 2).tolist()
+        assert sharding.placements((("pod", "data"), None, "model"),
+                                   mesh) == [Shard(0), Shard(2)]
+        assert sharding.placements((None, None), mesh) == [Replicate()] * 2
+        for bad in (("data", None), (("data", "pod"),), ("model", "model")):
+            with pytest.raises(ValueError, match="mesh axes"):
+                sharding.placements(bad, mesh)
+    with fake_mesh(MeshLayout(("data", "model"), (4, 2))) as mesh:
+        assert sharding.device_mesh(mesh) is mesh
+        assert sharding.placements(("data", "model"), mesh) == \
+            [Shard(0), Shard(1)]
+
+
+WORKER = r"""
+import dataclasses, functools, json, os, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+
+def slice_of(arr, spec, coord, names, sizes):
+    index = []
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            index.append(slice(None))
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        n, i = 1, 0
+        for a in axes:
+            k = names.index(a)
+            i, n = i * sizes[k] + coord[k], n * sizes[k]
+        step = arr.shape[dim] // n
+        index.append(slice(i * step, (i + 1) * step))
+    return arr[tuple(index)]
+
+
+def run(rank, port, ckpt, out):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=4)
+    try:
+        from repro_torch.checkpoint import Checkpointer
+        from repro_torch.configs import get_config
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.models import (build_model, model as model_mod,
+                                        param_specs, reference_layout,
+                                        sharding)
+        from repro_torch.optim import value_and_grad
+        from repro_torch.tree import leaves, leaves_with_path
+
+        model_mod.embed = functools.partial(model_mod.embed,
+                                            dtype=torch.float32)
+        cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(),
+                                  attn_impl="chunked")
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(0), "cpu")
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (8, 32)))
+        batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+        mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
+        with torch.no_grad():
+            want_logits = model.prefill_logits(params, batch)
+        want_loss, want_grads = value_and_grad(model.loss, params, batch)
+
+        placed = sharding.place_params(params, mesh)
+        with sharding.use_mesh(mesh):
+            dbatch = {k: sharding.distribute_tensor(
+                v, mesh, sharding.batch_spec(v.shape))
+                for k, v in batch.items()}
+        with sharding.partitioned(mesh):
+            with torch.no_grad():
+                logits = model.prefill_logits(placed, dbatch)
+            loss, grads = value_and_grad(model.loss, placed, dbatch)
+        result = {
+            "placements": [str(p) for p in logits.placements],
+            "logits": float((logits.full_tensor() - want_logits).abs().max()
+                            / want_logits.abs().max()),
+            "loss": float(abs(loss.full_tensor() - want_loss) / want_loss),
+            "grads": max(float((g.full_tensor() - w).abs().max()
+                               / w.abs().max())
+                         for g, w in zip(leaves(grads), leaves(want_grads))),
+            "dtensor_grads": all(type(g).__name__ == "DTensor"
+                                 for g in leaves(grads))}
+
+        template = reference_layout(params)
+        with sharding.use_mesh(mesh):
+            specs = param_specs(template)
+            step, restored = Checkpointer(ckpt).restore(template,
+                                                        shardings=specs)
+        with np.load(os.path.join(ckpt, f"ckpt_{step:010d}.npz")) as data:
+            saved = {k: data[k] for k in data.files}
+        coord = mesh.get_coordinate()
+        names, sizes = list(mesh.mesh_dim_names), list(mesh.shape)
+        equal, sharded = [], 0
+        for path, leaf in leaves_with_path(restored):
+            spec = specs
+            for key in path:
+                spec = spec[key]
+            want = slice_of(saved["##".join(map(str, path))], spec, coord,
+                            names, sizes)
+            equal.append(bool(np.array_equal(leaf.to_local().numpy(), want)))
+            sharded += any(e is not None for e in spec)
+        result.update(step=step, restored=len(equal), equal=all(equal),
+                      sharded_leaves=sharded)
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            json.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    port, ckpt, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+    mp.spawn(run, args=(port, ckpt, out), nprocs=4, join=True)
+"""
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@pytest.fixture(scope="module")
+def four_ranks(tmp_path_factory):
+    """The gloo workers' results: the reference's reduced qwen3-0.6b
+    parameters saved at step 7 by its ``Checkpointer``, then the four
+    ranks' partitioned forward, gradients and sharded restore."""
+    root = tmp_path_factory.mktemp("four_ranks")
+    ckpt, out = root / "ckpt", root / "out"
+    out.mkdir()
+    params = ref_build(ref_config("qwen3-0.6b").reduced()).init(
+        jax.random.PRNGKey(3))
+    RefCheckpointer(str(ckpt)).save(7, jax.tree.map(np.asarray, params))
+    script = root / "worker.py"
+    script.write_text(WORKER)
+    run = subprocess.run([sys.executable, str(script), str(_free_port()),
+                          str(ckpt), str(out)], env=_env(),
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-4000:]
+    return [json.loads((out / f"rank{r}.json").read_text())
+            for r in range(4)]
+
+
+def test_partitioned_forward_and_gradients_equal_unpartitioned(four_ranks):
+    for r in four_ranks:
+        # last-position logits: batch over data, vocab over model
+        assert r["placements"] == ["S(0)", "S(1)"]
+        assert r["dtensor_grads"]
+        assert r["logits"] <= 1e-5 and r["loss"] <= 1e-5
+        assert r["grads"] <= 1e-5
+
+
+def test_reference_checkpoint_restores_sharded_onto_four_ranks(four_ranks):
+    for r in four_ranks:
+        assert r["step"] == 7 and r["equal"]
+        assert r["restored"] == four_ranks[0]["restored"] > 0
+        assert r["sharded_leaves"] > 0
+
+
+def test_counter_agrees_with_collective_bytes():
+    hlo = "\n".join([
+        "%ag = f32[8,16]{1,0} all-gather-start(f32[4,16]{1,0} %x), "
+        "dimensions={0}",
+        "%agd = f32[8,16]{1,0} all-gather-done(f32[8,16]{1,0} %ag)",
+        "%rs = f32[8,8]{1,0} reduce-scatter(f32[8,16]{1,0} %y), "
+        "dimensions={1}, to_apply=%add",
+        "%ar = f32[8,16]{1,0} all-reduce-start(f32[8,16]{1,0} %z), "
+        "to_apply=%add",
+        "%ard = f32[8,16]{1,0} all-reduce-done(f32[8,16]{1,0} %ar)"])
+    with fake_mesh(MeshLayout(("data", "model"), (2, 2))) as mesh:
+        x = DTensor.from_local(torch.empty(4, 16), mesh,
+                               [Shard(0), Replicate()])
+        partial = DTensor.from_local(torch.empty(8, 16), mesh,
+                                     [Replicate(), Partial()])
+        with TraceCounter() as counter:
+            x.redistribute(mesh, [Replicate(), Replicate()])      # gather
+            partial.redistribute(mesh, [Replicate(), Shard(1)])   # scatter
+            partial.redistribute(mesh, [Replicate(), Replicate()])
+    assert counter.collectives == ref_collective_bytes(hlo) == {
+        "all-gather": 512.0, "reduce-scatter": 256.0, "all-reduce": 512.0}
+
+
+def test_counter_tracks_live_bytes_and_flops():
+    counter = TraceCounter()
+    a = torch.empty(64, 32, device=META)
+    counter.hold([a, a[1:]])                 # one storage, held once
+    with counter:
+        b = a @ torch.empty(32, 16, device=META)
+        del b
+        c = a.t()                            # a view: no new storage
+    assert counter.flops == 2 * 64 * 32 * 16
+    assert counter.peak_bytes == (64 * 32 + 32 * 16 + 64 * 16) * 4
+    assert counter.live_bytes == 64 * 32 * 4
+    assert counter.collectives == {}
+    del c
+
+
+SMALL = {"train_4k": ShapeConfig("train_4k", T, B, "train"),
+         "prefill_32k": ShapeConfig("prefill_32k", T, B, "prefill"),
+         "decode_32k": ShapeConfig("decode_32k", T, B, "decode")}
+
+
+@pytest.fixture
+def small_cells(monkeypatch):
+    """``run_cell`` on reduced configs at B 8, T 32, with ``multi`` the
+    (2, 2, 2) mesh of the reference's small dry run."""
+    monkeypatch.setattr(dryrun, "get_config",
+                        lambda a: get_config(a).reduced())
+    monkeypatch.setattr(dryrun, "SHAPES", SMALL)
+    layout = dryrun.layout_for
+    monkeypatch.setattr(dryrun, "layout_for", lambda m: CUBE
+                        if m == "multi" else layout(m))
+    yield
+    sharding.set_fsdp(False)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_small_mesh_dry_run_moves_collective_bytes(small_cells, arch):
+    for shape in ("train_4k", "decode_32k"):
+        got = dryrun.run_cell(arch, shape, "multi", verbose=False)
+        assert not dist.is_initialized()
+        assert got["status"] == "ok" and got["chips"] == 8
+        assert got["coll_bytes_per_dev"] == sum(
+            got["coll_breakdown"].values()) > 0
+        assert got["coll_source"] == dryrun.COLL_SOURCES["partitioned"]
+        assert got["hbm_per_dev"] >= got["state_bytes_per_dev"] > 0
+        assert got["t_collective"] > 0 and got["traced_flops"] > 0
+    card = dryrun.run_cell(arch, "train_4k", "card", verbose=False)
+    assert (card["coll_bytes_per_dev"], card["coll_breakdown"],
+            card["coll_source"]) == (0.0, {}, dryrun.COLL_SOURCES["card"])
+    assert card["hbm_per_dev"] >= card["state_bytes_per_dev"]
+
+
+def test_no_group_outlives_a_fake_mesh_and_none_starts_over_a_live_one():
+    with pytest.raises(KeyError):
+        with fake_mesh(CUBE):
+            assert dist.get_world_size() == 8
+            raise KeyError("inside")
+    assert not dist.is_initialized()
+    try:
+        make_mesh((1, 1), ("data", "model"), device_type="cpu")
+        with pytest.raises(RuntimeError, match="process group is live"):
+            with fake_mesh(CUBE):
+                pass
+        assert dist.get_backend() == "gloo"
+    finally:
+        dist.destroy_process_group()
+
+
+def test_shard_constrains_under_a_mesh_and_pins_the_gradient():
+    x = torch.ones(8, 4)
+    assert sharding.shard(x, ("pod", "data"), "model") is x
+    with fake_mesh(MeshLayout(("data", "model"), (2, 2))) as mesh:
+        d = sharding.distribute_tensor(torch.ones(8, 4), mesh, ("data", None))
+        assert sharding.shard(d, ("pod", "data"), "model") is d  # no mesh
+        with sharding.partitioned(mesh):
+            y = sharding.shard(d.detach().requires_grad_(),
+                               ("pod", "data"), "model")
+            assert y.placements == (Shard(0), Shard(1))
+            z = sharding.shard(y, None, None)      # to replicated
+            assert z.placements == (Replicate(), Replicate())
+            # 3 does not divide 4: the axis is dropped, as the rules do
+            odd = sharding.distribute_tensor(torch.ones(3, 4), mesh,
+                                             (None, None))
+            assert sharding.shard(odd, "data", None).placements == \
+                (Replicate(), Replicate())
+            assert sharding.replicated(y).placements == \
+                (Replicate(), Replicate())
+            heads = sharding.unflatten(sharding.distribute_tensor(
+                torch.ones(8, 6), mesh, (None, "model")), -1, (3, 2))
+            assert tuple(heads.shape) == (8, 3, 2)
+
+
+def _dtensor_inputs(name):
+    f = torch.float32
+    rays = [torch.rand(16) for _ in range(3)]
+    return {
+        "taylor_sin": (kernels.taylor_sin, [torch.rand(16)]),
+        "gaussian_blur_halo": (kernels.gaussian_blur_halo,
+                               [torch.rand(8, 8)]),
+        "matmul": (kernels.matmul, [torch.rand(4, 4), torch.rand(4, 4)]),
+        "mandelbrot": (kernels.mandelbrot, [torch.rand(16), torch.rand(16)]),
+        "raytrace": (kernels.raytrace,
+                     [*rays, torch.from_numpy(kernels.demo_spheres())]),
+        "rap": (kernels.rap, [torch.rand(4, 8),
+                              torch.full((4,), 3, dtype=torch.int32)]),
+        "flash_attention": (kernels.flash_attention,
+                            [torch.rand(1, 2, 8, 4, dtype=f)] * 3),
+        "linear_attention": (kernels.linear_attention,
+                             [torch.rand(2, 8, 4)] * 3
+                             + [-torch.rand(2, 8)]),
+    }[name]
+
+
+@pytest.mark.parametrize("name", [
+    "taylor_sin", "gaussian_blur_halo", "matmul", "mandelbrot", "raytrace",
+    "rap", "flash_attention", "linear_attention"])
+def test_hand_kernels_refuse_a_dtensor(name):
+    wrapper, inputs = _dtensor_inputs(name)
+    wrapper(*inputs)                        # the plain version on the CPU
+    with fake_mesh(MeshLayout(("data", "model"), (1, 2))) as mesh:
+        dinputs = [sharding.distribute_tensor(t, mesh, (None,) * t.dim())
+                   for t in inputs]
+        with pytest.raises(ValueError, match=f"{name}: .*not a DTensor"):
+            wrapper(*dinputs)
+
+
+def test_partitioned_prefill_refuses_the_flash_kernel():
+    cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(),
+                              attn_impl="flash")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), META)
+    with fake_mesh(MeshLayout(("data", "model"), (2, 2))) as mesh:
+        placed = sharding.place_params(params, mesh)
+        tokens = sharding.distribute_tensor(
+            torch.zeros(B, T, dtype=torch.int64, device=META), mesh,
+            ("data", None))
+        with sharding.partitioned(mesh), torch.no_grad():
+            with pytest.raises(ValueError, match="flash_attention: "):
+                model.prefill_logits(placed, {"tokens": tokens})
