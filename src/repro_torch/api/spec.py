@@ -44,10 +44,13 @@ __all__ = [
 
 SPEC_VERSION = 1
 
-#: The port's kernel implementation axis: ``auto`` runs the hand CUDA
-#: kernel for CUDA tensors and the plain PyTorch version for CPU tensors.
-#: The reference's ``pallas`` / ``xla`` / ``ref`` are rejected.
-KERNEL_IMPL_CHOICES = ("auto",)
+#: The kernel implementation axis, the reference's four choices:
+#: ``pallas`` runs the hand CUDA kernel on CUDA tensors (the plain
+#: PyTorch version on CPU tensors), ``xla`` and ``ref`` the plain
+#: version (one body under two registry objects), and ``auto`` resolves
+#: to ``pallas`` where a CUDA card is, ``xla`` elsewhere
+#: (:func:`repro_torch.kernels.default_impl`).
+KERNEL_IMPL_CHOICES = ("auto", "pallas", "xla", "ref")
 
 
 def _freeze(value: Any) -> Any:
@@ -446,8 +449,11 @@ class WorkloadSpec(_SubSpec):
     kernel_impl: str = dataclasses.field(
         default="auto", metadata=_cli(
             "kernel-impl", "kernel implementation variant to serve "
-                           "(auto = the hand CUDA kernel on CUDA tensors, "
-                           "the plain version on CPU tensors)",
+                           "(pallas = the hand CUDA kernel on CUDA "
+                           "tensors, the plain version on CPU tensors; "
+                           "xla and ref = the plain PyTorch version, "
+                           "as two registry objects; auto = pallas "
+                           "where a CUDA card is, xla elsewhere)",
             choices=KERNEL_IMPL_CHOICES))
     size_scale: float = dataclasses.field(
         default=1.0, metadata=_cli(
@@ -482,8 +488,8 @@ class WorkloadSpec(_SubSpec):
                            f"{list(registry.kernel_names())}")
         if self.kernel_impl not in KERNEL_IMPL_CHOICES:
             raise ValueError(
-                f"unknown kernel_impl {self.kernel_impl!r}; the port "
-                f"serves {list(KERNEL_IMPL_CHOICES)}")
+                f"unknown kernel_impl {self.kernel_impl!r}; choose from "
+                f"{list(KERNEL_IMPL_CHOICES)}")
         if self.items <= 0 or self.requests <= 0 or self.concurrent <= 0:
             raise ValueError("items/requests/concurrent must be positive")
         if self.size_scale <= 0:
@@ -517,7 +523,9 @@ class WorkloadSpec(_SubSpec):
     def build_kernel(self):
         """Resolve the served kernel through the kernel registry.
 
-        The :attr:`kernel_impl` axis is passed through (``auto``).
+        The :attr:`kernel_impl` axis is passed through, so ``--kernel-impl
+        pallas`` serves the hand-kernel body of the selected kernel on
+        every unit (``auto`` defers to the kernel's backend-aware default).
 
         Returns:
             The registered :class:`~repro_torch.core.dataplane.CoexecKernel`.

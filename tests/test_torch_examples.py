@@ -38,6 +38,19 @@ def test_concurrent_requests(capsys):
     assert "policy=work_stealing" in out
 
 
+def test_coexec_benchmarks(capsys):
+    _example("torch_coexec_benchmarks.py").main(
+        ["--device", "cpu", "--n", "4096"])
+    out = capsys.readouterr().out
+    for name in ("taylor", "mandelbrot", "ray", "rap"):
+        block = out.split(f"== {name} (4096 items, usm)\n")[1]
+        lines = block.splitlines()[:4]
+        assert [line.split(":")[0].strip() for line in lines] == [
+            "static", "dyn16", "hguided", "work_stealing"], name
+        assert all("packages, copies h2d=0 d2h=0" in line
+                   for line in lines), name
+
+
 @pytest.mark.parametrize("arch", ["h2o-danube3-4b", "whisper-medium",
                                   "xlstm-1.3b"])
 def test_serve_lm(capsys, arch):

@@ -8,9 +8,12 @@ Tolerances: assignments, shares, ``rebalanced`` flags, straggler lists
 and compilation counts exactly; the two trainers' losses, in f32 (both
 packages' ``embed`` f32) from the same parameters under the static
 policy, within rtol 1e-5 over three steps (another order of f32 sums in
-the forward and backward passes).
+the forward and backward passes). Step times are taken on a counting
+clock (one unit per microbatch gradient, ``counting_clock``) where a test
+reads them: the wall clock's ratios are noise under parallel workers.
 """
 import functools
+import types
 
 import numpy as np
 import pytest
@@ -19,7 +22,9 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import repro.hetero.trainer as ref_trainer_mod
 import repro.models.model as ref_model_mod
+import repro_torch.hetero.trainer as trainer_mod
 import repro_torch.models.model as model_mod
 from repro.configs import get_config as ref_config
 from repro.data import DataPipeline as RefPipeline
@@ -231,12 +236,58 @@ def test_gradients_invariant_to_policy():
         assert torch.equal(a, b)
 
 
-def test_step_time_improves_under_hguided():
+def counting_clock(monkeypatch, trainer, module) -> None:
+    """Time ``trainer`` (of the trainer ``module``) on a clock that
+    advances one unit per microbatch gradient, in place of the host's
+    ``perf_counter``: a group's virtual seconds are then its microbatches
+    over its speed, whatever else the host runs."""
+    now = [0.0]
+    grad_fn = trainer._grad_fn
+
+    def counted(*args, **kwargs):
+        now[0] += 1.0
+        return grad_fn(*args, **kwargs)
+
+    trainer._grad_fn = counted
+    monkeypatch.setattr(module, "time", types.SimpleNamespace(
+        perf_counter=lambda: now[0]))
+
+
+def test_step_time_improves_under_hguided(monkeypatch):
+    """Rebalancing shortens the barrier: on the counting clock (the wall
+    clock's ratio is noise under parallel test workers), the mean of the
+    last three steps is under 0.9 x that of steps 1-3."""
     tr = make_trainer("hguided", {"A": 1.0, "B": 0.2}, steps=30)
+    counting_clock(monkeypatch, tr, trainer_mod)
     reports = tr.run(30)
     first = np.mean([r.step_seconds for r in reports[1:4]])
     last = np.mean([r.step_seconds for r in reports[-3:]])
     assert last < first * 0.9         # rebalancing shortened the barrier
+
+
+def test_step_time_assignments_equal_the_reference_trainers(monkeypatch):
+    """Both trainers under hguided on the counting clock: the same
+    assignments, rebalance flags and virtual step times, step for step."""
+    speeds = {"A": 1.0, "B": 0.2}
+    ours = make_trainer("hguided", speeds, steps=30)
+    ref_cfg = ref_config("qwen3-0.6b").reduced()
+    ref_model = ref_build(ref_cfg)
+    ref = RefTrainer(ref_model, ref_model.init(jax.random.PRNGKey(0)),
+                     optimizer=RefAdamW(lr=1e-3),
+                     policy=ref_make_policy("hguided",
+                                            {k: 1.0 for k in speeds},
+                                            total_steps=30),
+                     pipeline=RefPipeline(seed=5, global_batch=8, seq_len=16,
+                                          vocab=ref_cfg.vocab_size,
+                                          num_shards=8),
+                     group_speeds=speeds, total_microbatches=8)
+    counting_clock(monkeypatch, ours, trainer_mod)
+    counting_clock(monkeypatch, ref, ref_trainer_mod)
+    got, want = ours.run(30), ref.run(30)
+    assert [r.assignment for r in got] == [r.assignment for r in want]
+    assert [r.rebalanced for r in got] == [r.rebalanced for r in want]
+    assert [r.step_seconds for r in got] == [r.step_seconds for r in want]
+    assert len({tuple(r.assignment.values()) for r in got}) > 1
 
 
 def test_kill_group_redistributes():

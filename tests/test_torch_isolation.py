@@ -5,7 +5,10 @@ An AST scan of every module under ``src/repro_torch`` finds no import of
 packages (the DES, traffic, cluster and energy tiers, the serve CLI, the
 roofline, the sharding rules, the mesh, the dry run and the
 static-analysis passes among them) and builds a DES profile through the
-registry has neither in ``sys.modules`` afterwards.
+registry has neither in ``sys.modules`` afterwards. The port's scripts
+and examples (``scripts/torch_*.py``, ``examples/torch_*.py``) import
+neither either, and collecting the port's API snapshot through the
+reference's collector loads neither.
 """
 import ast
 import os
@@ -15,8 +18,11 @@ import sys
 
 import pytest
 
-SRC = pathlib.Path(__file__).resolve().parent.parent / "src"
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+SRC = ROOT / "src"
 MODULES = sorted((SRC / "repro_torch").rglob("*.py"))
+SCRIPTS = sorted([*(ROOT / "scripts").glob("torch_*.py"),
+                  *(ROOT / "examples").glob("torch_*.py")])
 FORBIDDEN = ("jax", "repro")
 
 
@@ -33,7 +39,8 @@ def imported_roots(path: pathlib.Path) -> set[str]:
 def test_scan_covers_the_package():
     names = {p.relative_to(SRC).as_posix() for p in MODULES}
     for module in ("core/dataplane.py", "core/director.py",
-                   "kernels/ops.py", "kernels/raytrace.py", "kernels/rap.py",
+                   "kernels/ops.py", "kernels/ref.py", "kernels/raytrace.py",
+                   "kernels/rap.py",
                    "configs/base.py", "models/model.py", "models/convert.py",
                    "models/moe.py", "models/xlstm.py",
                    "kernels/flash_attention.py",
@@ -65,6 +72,27 @@ def test_import_leaves_no_jax_or_reference_in_sys_modules():
             "repro_torch.analysis\n"
             "from repro_torch.core import paper_workload\n"
             "paper_workload('mandelbrot')\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "print(bad); sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("path", SCRIPTS,
+                         ids=[p.relative_to(ROOT).as_posix() for p in SCRIPTS])
+def test_script_imports_neither_jax_nor_reference(path):
+    bad = imported_roots(path) & set(FORBIDDEN)
+    assert not bad, f"{path.name} imports {sorted(bad)}"
+
+
+def test_api_snapshot_collection_loads_neither():
+    code = ("import sys\n"
+            f"sys.path.insert(0, {str(ROOT / 'scripts')!r})\n"
+            "import torch_check_api\n"
+            "assert torch_check_api.base.snapshot_lines()\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad); sys.exit(1 if bad else 0)\n")

@@ -807,6 +807,6 @@ def test_raytrace_unrolled_scene_is_the_main_paths():
     main = _cu_constant("raytrace.cu", "kMainSpheres")
     assert inspect.signature(demo_spheres).parameters["num"].default == main
     ops = importlib.import_module("repro_torch.kernels.ops")
-    (scene,) = [a.default for a in ops._ray_kernel_impl(impl="auto").args
+    (scene,) = [a.default for a in ops._ray_kernel_impl(impl="pallas").args
                 if a.name == "spheres"]
     assert scene().shape == (main, 5)

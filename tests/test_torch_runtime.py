@@ -140,13 +140,23 @@ def test_spec_json_from_reference_round_trips():
 
 
 def test_reference_only_kernel_impls_are_rejected():
-    spec = CoexecSpec()
+    """The reference's implementation variants, once refused by the port,
+    load and validate in it: a reference spec with each ``kernel_impl``
+    equals the reference's dict and builds that variant; an impl neither
+    package serves is rejected by both."""
     for impl in ("pallas", "xla", "ref"):
-        bad = spec.replace(workload=spec.workload.replace(kernel_impl=impl))
-        with pytest.raises(ValueError, match="'auto'"):
+        ref = RefSpec.builder().workload("taylor", kernel_impl=impl).build()
+        port = CoexecSpec.from_json(ref.to_json())
+        port.validate()
+        assert port.to_dict() == ref.to_dict()
+        assert port.workload.build_kernel() is build_kernel("taylor",
+                                                            impl=impl)
+    for cls in (CoexecSpec, RefSpec):
+        spec = cls()
+        bad = spec.replace(workload=spec.workload.replace(
+            kernel_impl="opencl"))
+        with pytest.raises(ValueError, match="unknown kernel_impl 'opencl'"):
             bad.validate()
-        with pytest.raises(ValueError, match="'auto'"):
-            build_kernel("taylor", impl=impl)
     assert build_kernel("taylor", impl="auto") is build_kernel("taylor")
 
 

@@ -2,10 +2,10 @@
 
 * Every argv of ``tests/test_api_cli.py``'s serve cases folds into a spec
   whose JSON equals the reference's, and spec → argv → spec is the
-  identity with the argv itself equal to the reference's. The two cases
-  that ask for ``--kernel-impl pallas`` and ``ref`` are the exception:
-  the port serves only ``auto`` and rejects both, at the parser and in
-  the spec, naming the reference's field (``unknown kernel_impl ...``).
+  identity with the argv itself equal to the reference's. That holds for
+  each ``--kernel-impl`` the reference serves (``pallas``, ``xla``,
+  ``ref``), whose spec builds that variant of its kernel; an impl
+  neither package has is refused by both parsers.
 * ``default_serve_spec`` differs from the reference's in one section,
   ``units``, and there in three fields: ``kinds`` (the devices [cuda:0,
   cpu] decide them here; the reference names two faked CPU units),
@@ -62,6 +62,7 @@ SERVE_STYLE_ARGV = [
 REFERENCE_ONLY_IMPLS = [
     ["--kernel-impl", "pallas", "--kernel", "taylor"],
     ["--kernel-impl", "ref", "--workload", "gaussian"],
+    ["--kernel-impl", "xla", "--kernel", "rap"],
 ]
 TOL = {"taylor": (1e-5, 1e-6), "gaussian": (1e-5, 1e-6),
        "matmul": (1e-5, 1e-6 * 32), "mandelbrot": (0.0, 0.0),
@@ -133,17 +134,27 @@ def test_cli_round_trip_over_the_serve_base_equals_reference(argv):
 
 @pytest.mark.parametrize("argv", REFERENCE_ONLY_IMPLS)
 def test_reference_only_kernel_impls_are_rejected(argv, capsys):
-    ref_spec = ref_api.spec_from_args(
-        ref_serve.build_parser().parse_args(argv))
-    ref_spec.validate()                 # the reference serves them
-    with pytest.raises(SystemExit):
-        serve.build_parser().parse_args(argv)
-    assert "invalid choice" in capsys.readouterr().err
+    """The reference's implementation variants, once refused by the port,
+    are served by it: each argv folds into the reference's spec, which
+    validates in both packages and builds that variant of its kernel.
+    Only an impl neither package serves is still rejected, by both."""
     impl = argv[1]
-    spec = api.CoexecSpec.from_json(ref_spec.to_json())
-    with pytest.raises(ValueError,
-                       match=f"unknown kernel_impl '{impl}'.*'auto'"):
-        spec.validate()
+    spec, ref_spec = spec_pair(argv)
+    ref_spec.validate()
+    spec.validate()
+    assert spec.to_dict() == ref_spec.to_dict()
+    assert spec.workload.kernel_impl == impl
+    assert api.args_from_spec(spec) == ref_api.args_from_spec(ref_spec)
+    loaded = api.CoexecSpec.from_json(ref_spec.to_json())
+    loaded.validate()
+    assert loaded == spec
+    assert loaded.build_kernel() is api.build_kernel(
+        spec.workload.resolve_kernel(), impl=impl)
+    bad = ["--kernel-impl", "opencl", *argv[2:]]
+    for parser in (serve.build_parser(), ref_serve.build_parser()):
+        with pytest.raises(SystemExit):
+            parser.parse_args(bad)
+        assert "invalid choice: 'opencl'" in capsys.readouterr().err
 
 
 def test_default_serve_spec_differs_only_in_units():
