@@ -37,12 +37,12 @@ from .cluster import (Autoscaler, ClusterRealBackend, ClusterReplay,
                       replay_cluster_lockstep, replay_trace_cluster)
 from .dataplane import (ArgRole, ArgSpec, CoexecKernel, DataPlaneCounters,
                         HaloChunk, OutputSpec, as_coexec_kernel, make_plane)
-from .energy import (EnergyReport, PowerModel, PAPER_POWER, edp_ratio,
-                     energy_report, geomean)
+from .energy import (EnergyReport, H100_POWER, PowerModel, PAPER_POWER,
+                     edp_ratio, energy_report, geomean)
 from .engine import (CoexecEngine, LaunchHandle, LaunchStats,
                      LaunchWaitTimeout)
 from .exec import ExecutionLoop, LaunchState
-from .memory import MemoryCosts, MemoryModel
+from .memory import H100_MEMORY_COSTS, MemoryCosts, MemoryModel
 from .package import Package, Range, validate_cover
 from .profiler import EwmaThroughput, SpeedBoard
 from .runtime import CoexecutorRuntime, counits_from_devices
@@ -65,7 +65,7 @@ __all__ = [
     "ClusterSimBackend", "CoexecEngine", "CoexecKernel",
     "CoexecutorRuntime", "DataPlaneCounters", "DynamicScheduler",
     "EnergyReport", "EwmaThroughput", "ExecutionLoop", "FailurePlan",
-    "HGuidedScheduler", "HaloChunk", "IRREGULAR", "InjectedFailure",
+    "H100_MEMORY_COSTS", "H100_POWER", "HGuidedScheduler", "HaloChunk", "IRREGULAR", "InjectedFailure",
     "LaunchHandle", "LaunchShed", "LaunchSimResult", "LaunchSpec",
     "LaunchState", "LaunchStats", "LaunchWaitTimeout", "MemoryCosts",
     "MemoryModel", "MultiSimResult", "OutputSpec", "PAPER_POWER",

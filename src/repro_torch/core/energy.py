@@ -9,9 +9,10 @@ profiler:
     E_pkg   = P_uncore_dram * T_total                    (shared)
     E_total = sum(E_unit) + E_pkg
 
-Power constants are calibrated to the paper's platform (Intel i5-7500 Kaby
-Lake, 4C/4T, HD Graphics 630 GT2). No preset for the CUDA host exists:
-its power must be measured on the card first.
+``PAPER_POWER`` is calibrated to the paper's platform (Intel i5-7500 Kaby
+Lake, 4C/4T, HD Graphics 630 GT2); ``H100_POWER``, the counterpart of the
+reference's TPU preset, is measured on the port's card host by
+``chip_smoke.py`` phase 13.
 Energy-Delay Product (EDP) and the paper's efficiency ratio
 ``EDP_gpu / EDP_coexec`` are computed exactly as in §5.2.
 """
@@ -61,6 +62,20 @@ PAPER_POWER = PowerModel(
     idle_w={"cpu": 5.0, "gpu": 1.5},
     uncore_dram_w=9.0,
 )
+
+# The card's host, measured by chip_smoke.py phase 13 on "NVIDIA H100
+# 80GB HBM3, 700.00 W" (its nvidia-smi name and power limit): cuda:0's
+# idle watts are power.draw at rest, before and after a window of the six
+# paper kernels' cuda-only launches in turn, its busy watts the rest plus
+# that window's excess draw over its busy share (USM: the SMs mostly wait
+# on mapped reads over PCIe). RAPL was unreadable on that host, so the
+# CPU's and the uncore's entries stay the paper's.
+H100_POWER = PowerModel(
+    busy_w={"cpu": 20.0, "gpu": 135.54},
+    idle_w={"cpu": 5.0, "gpu": 121.17},
+    uncore_dram_w=9.0,
+)
+
 
 @dataclasses.dataclass(frozen=True)
 class EnergyReport:

@@ -16,9 +16,9 @@ governed by its own model, as in the paper):
 Two layers consume the model selection:
 
 * the **cost model** below drives the discrete-event simulator (paper
-  reproduction) — bandwidths calibrated to the paper's platform (Kaby
-  Lake iGPU sharing LLC/DRAM with the CPU); no calibration for the
-  CUDA host exists yet;
+  reproduction) — the defaults calibrated to the paper's platform (Kaby
+  Lake iGPU sharing LLC/DRAM with the CPU), ``H100_MEMORY_COSTS``
+  measured on the port's card host;
 * the **real data plane** (:mod:`repro_torch.core.dataplane`) implements the
   semantics on the live engine: ``MemoryModel.USM`` selects zero-copy
   shared-array movement with in-place collection, ``MemoryModel.BUFFERS``
@@ -84,3 +84,24 @@ class MemoryCosts:
         spill = max(0.0, working_set_bytes - self.llc_bytes)
         return 1.0 + spill * self.contention_per_B
 
+
+# The card's host, measured by chip_smoke.py phase 13 on "NVIDIA H100
+# 80GB HBM3, 700.00 W" (its nvidia-smi name and power limit). A package's
+# fixed cost is an empty (64-item) one's submit plus its fixed busy time
+# on cuda:0 while the CPU unit computes, as it does in a pair, the medians
+# of 30 (USM 231.5 + 250.4 us, BUFFERS 404.4 + 270.8 us); a SimUnit's
+# speed excludes the fixed busy time of a package alone. Collections are
+# the median mapped read-back of phase 4's USM cuda:0 packages and an
+# empty BUFFERS package's copy back; the copy rate a pinned 256 MiB
+# host-to-device copy's; the LLC the host's, from /proc/cpuinfo (the
+# host's container hides sysfs's cache tree). A discrete card shares no
+# cache with the host: no contention term.
+H100_MEMORY_COSTS = MemoryCosts(
+    submit_overhead_s=481.8e-6,
+    buffer_submit_overhead_s=675.2e-6,
+    copy_bw_Bps=52.17e9,
+    usm_collect_s=5.61e-6,
+    buffer_collect_overhead_s=39.4e-6,
+    llc_bytes=8 * 2**20,
+    contention_per_B=0.0,
+)

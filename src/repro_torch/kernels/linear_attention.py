@@ -47,7 +47,6 @@ PyTorch, no kernel, autograd through it.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from . import _lib
@@ -163,8 +162,11 @@ def chunked_linear_attention(q: torch.Tensor, k: torch.Tensor,
     Dv = v.shape[-1]
     pad = (-T) % chunk
     if pad:
-        q, k, v = (F.pad(a, (0, 0, 0, pad)) for a in (q, k, v))
-        log_decay = F.pad(log_decay, (0, pad))
+        # zeros concatenated, not F.pad: torch 2.11's DTensor mis-places a
+        # padded tensor (the same values)
+        q, k, v, log_decay = (torch.cat(
+            [a, a.new_zeros(()).expand(BH, pad, *a.shape[2:])], dim=1)
+            for a in (q, k, v, log_decay))
     nc = q.shape[1] // chunk
 
     def chunks(a):

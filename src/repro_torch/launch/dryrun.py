@@ -44,6 +44,7 @@ import time
 from typing import Any, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..configs import ARCH_IDS, SHAPES, get_config
 from ..configs.base import ModelConfig, ShapeConfig
@@ -51,11 +52,12 @@ from ..models import (build_model, cache_specs, count_params, param_specs,
                       reference_layout)
 from ..models.convert import META
 from ..models.sharding import (axis_sizes, batch_spec, distribute_tensor,
-                               partitioned, place_cache, place_params,
-                               set_fsdp, use_mesh)
+                               mesh_in_force, partitioned, place_cache,
+                               place_params, placements, set_fsdp,
+                               use_mesh)
 from ..optim import AdamW, accumulate_grads, clip_by_global_norm
 from ..roofline import Roofline, TraceCounter, cell_bytes, cell_flops
-from ..tree import leaves_with_path
+from ..tree import leaves, leaves_with_path
 from .mesh import MeshLayout, fake_mesh, make_production_mesh
 
 MESHES = ("single", "multi", "card")
@@ -163,15 +165,32 @@ def trace_step(model, params: Any, batch: dict, shape: ShapeConfig,
         if shape.kind == "train":
             optimizer = AdamW(lr=1e-4)
             state = optimizer.init(params)
-            _, grads = accumulate_grads(model.loss, params, micro)
+            loss, grads = accumulate_grads(model.loss, params, micro)
             grads, _ = clip_by_global_norm(grads, 1.0)
             optimizer.update(grads, state, params)
+            outputs = [(loss, ())]
         else:
             with torch.no_grad():
                 if shape.kind == "prefill":
-                    model.prefill_logits(params, micro[0])
+                    logits = model.prefill_logits(params, micro[0])
+                    outputs = [(logits, batch_spec(logits.shape[:1]))]
                 else:
-                    model.decode_step(params, micro[0]["tokens"], cache)
+                    logits, new = model.decode_step(
+                        params, micro[0]["tokens"], cache)
+                    outputs = [(logits, ()), *zip(leaves(new),
+                                                   leaves(cache))]
+        # the outputs placed as the reference's out_shardings place them
+        # (the loss and the decode logits replicated, the prefill logits
+        # over the batch axes, the advanced cache as it came in), so the
+        # collectives that takes count as GSPMD's do
+        for out, where in outputs:
+            if isinstance(out, DTensor):
+                if isinstance(where, DTensor):
+                    where = where.placements
+                else:
+                    where = placements(tuple(where) + (None,) * (
+                        out.ndim - len(where)), mesh_in_force())
+                out.redistribute(out.device_mesh, list(where))
     return counter
 
 
@@ -287,6 +306,9 @@ def run_cell(arch: str, shape_name: str, mesh: str = "single",
            "memory_analysis": {},
            "coll_source": COLL_SOURCES["card" if mesh == "card"
                                        else "partitioned"],
+           "coll_by_op": sorted(([kind, op, nbytes] for (kind, op), nbytes
+                                 in counter.by_op.items()),
+                                key=lambda row: -row[2]),
            **roof.to_dict()}
     if verbose:
         print(f"[{arch} × {shape_name} × {mesh}] "

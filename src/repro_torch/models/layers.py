@@ -17,7 +17,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .sharding import pinned, rows, settled, shard
+from .sharding import (arange_like, logsumexp, matmul, pad_rows, pinned,
+                       settled, shard)
 
 Params = dict
 
@@ -109,7 +110,7 @@ def init_dense(generator: torch.Generator, d_in: int, d_out: int, *,
 
 
 def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
-    y = pinned(torch.matmul(rows(x), p["kernel"].to(x.dtype)))
+    y = pinned(matmul(x, p["kernel"].to(x.dtype)))
     if "bias" in p:
         y = y + p["bias"].to(x.dtype)
     return y
@@ -174,15 +175,12 @@ def unembed(p: Params, x: torch.Tensor,
     ``pad_to`` (the padded columns come out as 0)."""
     table = p["table"].float()
     if pad_to is not None and pad_to > table.shape[0]:
-        # padding moves every shard's boundary, so a sharded table is
-        # gathered (zero rows appended by a concatenation: torch 2.11's
-        # DTensor mis-places a padded one); padded, it goes back over
-        # model, as the rules shard the table, and the logits come out
-        # vocab-sharded, not whole on every rank
-        zeros = torch.zeros(pad_to - table.shape[0], table.shape[1],
-                            device=table.device)
-        table = shard(torch.cat([table, zeros]), "model", None)
-    return pinned(torch.matmul(rows(x.float()), table.t()))
+        # a vocab-sharded table keeps its layout, each rank receiving
+        # only the rows its padded shard lacks (``pad_rows``); a
+        # replicated one, padded, goes over model, as the rules shard the
+        # table. Either way the logits come out vocab-sharded.
+        table = shard(pad_rows(table, pad_to), "model", None)
+    return pinned(matmul(x.float(), table.t()))
 
 
 def sinusoidal_positions(seq: int, d: int, dtype: torch.dtype = torch.float32,
@@ -226,10 +224,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     -inf, and the gold logit is a select-and-sum over the vocab dim (not a
     gather); ``mask`` weights the tokens, and the mean is over its sum.
     """
-    col = torch.arange(logits.shape[-1], device=logits.device)
+    col = arange_like(logits)
     if valid_vocab is not None and valid_vocab < logits.shape[-1]:
         logits = logits.masked_fill(col >= valid_vocab, float("-inf"))
-    logz = torch.logsumexp(logits, dim=-1)
+    logz = logsumexp(logits, dim=-1)
     gold = torch.where(col == labels[..., None], logits,
                        torch.zeros((), dtype=logits.dtype,
                                    device=logits.device)).sum(dim=-1)

@@ -41,7 +41,7 @@ from .layers import (cross_entropy, dense, embed, gelu_mlp, init_dense,
                      init_embedding, init_gelu_mlp, init_layernorm, init_mlp,
                      init_rmsnorm, layernorm, mlp, rmsnorm, rope_frequencies,
                      sinusoidal_positions, unembed)
-from .sharding import flatten, per_shard, shard, unflatten
+from .sharding import arange_like, flatten, per_shard, shard, unflatten
 
 Params = Any
 
@@ -111,7 +111,7 @@ def _pad_vocab(cfg: ModelConfig) -> Optional[int]:
 def _mask_pad_cols(logits: torch.Tensor, valid: int) -> torch.Tensor:
     if logits.shape[-1] == valid:
         return logits
-    col = torch.arange(logits.shape[-1], device=logits.device)
+    col = arange_like(logits)
     return logits.masked_fill(col >= valid, float("-inf"))
 
 

@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from .layers import _normal, dense, init_dense, silu
-from .sharding import replicated, shard
+from .sharding import pinned, replicated, shard
 
 Params = dict
 
@@ -130,4 +130,7 @@ def moe_layer(p: Params, x: torch.Tensor, *, num_experts: int, top_k: int,
     combined = torch.zeros(B * T, d, dtype=contrib.dtype,
                            device=x.device).index_add(
         0, r["sorted_token"], replicated(contrib))   # index_add, as above
-    return combined.to(x.dtype).reshape(B, T, d), r["aux"]
+    # pinned: the gradient comes back replicated, as ``combined`` is, and
+    # not sharded past the first dim, which torch 2.11's DTensor cannot
+    # view-flatten
+    return pinned(combined.to(x.dtype).reshape(B, T, d)), r["aux"]

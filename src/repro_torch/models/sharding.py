@@ -169,11 +169,10 @@ def layer_specs(tree: Any, stacked: Any) -> Any:
     under k lists of layers takes its stacked leaf's spec without the
     first k entries. Non-tensor leaves (a cache's ``len``) get None.
 
-    The reference's rules may put an axis on a layer dim (a rule of the
-    wrong arity on zamba2's twice-stacked superblocks: ``mamba/out_proj``
-    over ``model`` wherever that axis divides the 6 blocks of a
-    superblock, as on a (2, 2, 2) mesh). A list of layers cannot be split,
-    so that axis is dropped and the port's leaf stays whole along it."""
+    A list of layers cannot be split: an axis that a spec puts on a layer
+    dim (FSDP's data axes on the blocks of a superblock, where the
+    reference's best-effort padding of a rule lands them) is dropped, and
+    the port's leaf stays whole along it."""
     def spec_for(path, leaf):
         if not isinstance(leaf, torch.Tensor):
             return None
@@ -315,6 +314,206 @@ def rows(x: torch.Tensor) -> torch.Tensor:
     return _gathered(x, range(1, x.ndim - 1))
 
 
+def _split_evenly(x: torch.Tensor, n: int) -> torch.Tensor:
+    """A DTensor whose dim 0 folds a leading dim of ``n``, with each mesh
+    dim that shards dim 0 replicated where, with it, the shards would not
+    split ``n`` evenly (DTensor may shard a fold's rows over a mesh dim
+    that the leading dim does not divide, 8 rows of 32 tokens over a data
+    axis of 16, and then cannot unfold them). The rules drop such an axis
+    (``_resolve``); GSPMD reshards there."""
+    if not isinstance(x, DTensor):
+        return x
+    where, ranks = list(x.placements), 1
+    for i, p in enumerate(where):
+        if isinstance(p, Shard) and p.dim == 0:
+            if n % (ranks * x.device_mesh.size(i)):
+                where[i] = Replicate()
+            else:
+                ranks *= x.device_mesh.size(i)
+    if where == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, where)
+
+
+class _FoldedRows(torch.autograd.Function):
+    """:func:`_split_evenly` on the value and on its gradient."""
+
+    @staticmethod
+    def forward(ctx, x: DTensor, n: int) -> DTensor:
+        ctx.n = n
+        return _split_evenly(x, n)
+
+    @staticmethod
+    def backward(ctx, grad: DTensor):
+        return _split_evenly(grad, ctx.n), None
+
+
+def folded(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x``, a fold whose dim 0 holds a leading dim of ``n``, made
+    unfoldable again, and its gradient alike: see :func:`_split_evenly`.
+    A plain tensor as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    return _FoldedRows.apply(x, n)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for ``x`` (..., d) and ``w`` (d, f). On a DTensor ``x``
+    the leading dims are folded into rows, as ``torch.matmul`` folds them,
+    but explicitly: those after the first gathered where sharded
+    (:func:`rows`), and the rows kept unfoldable on the way in and out
+    (:func:`folded`), so a batch smaller than the data axis traces."""
+    if not isinstance(x, DTensor) or x.ndim <= 2:
+        return torch.matmul(x, w)
+    x = rows(x)
+    lead = tuple(x.shape[:-1])
+    y = torch.mm(folded(x.reshape(-1, x.shape[-1]), lead[0]), w)
+    return folded(y, lead[0]).view(*lead, y.shape[-1])
+
+
+def einsum(equation: str, *operands: torch.Tensor,
+           batch: int) -> torch.Tensor:
+    """``torch.einsum(equation, *operands)`` where the first ``batch``
+    letters of every operand and of the result are the same batch dims.
+    On DTensors those dims are folded into one here (:func:`flatten`) and
+    kept unfoldable (:func:`folded`) around the einsum, which DTensor
+    would otherwise fold itself and might shard unevenly; plain tensors go
+    to ``torch.einsum`` as they are."""
+    if not any(isinstance(t, DTensor) for t in operands):
+        return torch.einsum(equation, *operands)
+    lead = tuple(operands[0].shape[:batch])
+    inputs, output = equation.replace(" ", "").split("->")
+    fold = ",".join("Z" + term[batch:] for term in inputs.split(","))
+    y = torch.einsum(f"{fold}->Z{output[batch:]}",
+                     *(folded(flatten(t, 0, batch - 1), lead[0])
+                       for t in operands))
+    return unflatten(folded(y, lead[0]), 0, lead)
+
+
+def arange_like(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``torch.arange(x.shape[dim])`` on ``x``'s device, for comparisons
+    against ``x`` along ``dim`` (a vocab mask). On a DTensor it is placed
+    as that dim of ``x`` is, split where ``x`` splits it and replicated
+    elsewhere, so the masks and selects built from it stay split as ``x``
+    is, and so do their gradients, where a replicated arange makes them
+    whole on every rank."""
+    col = torch.arange(x.shape[dim], device=x.device)
+    if not isinstance(x, DTensor):
+        return col
+    from torch.distributed.tensor import distribute_tensor as dist_tensor
+    dim = dim % x.ndim
+    where = [Shard(0) if isinstance(p, Shard) and p.dim == dim
+             else Replicate() for p in x.placements]
+    return dist_tensor(col, x.device_mesh, where, src_data_rank=None)
+
+
+def logsumexp(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``torch.logsumexp(x, dim)``. On a DTensor, as the max (held
+    constant, as ``jax.nn.logsumexp`` holds it) plus the log of the sum of
+    the exponentials past it: a vocab-sharded dim is then reduced by two
+    small all-reduces where DTensor's ``logsumexp`` gathers the dim, as
+    GSPMD does not. Both are settled before they are used: torch 2.11
+    gives a NaN gradient for ``log`` of a pending sum."""
+    if not isinstance(x, DTensor):
+        return torch.logsumexp(x, dim=dim)
+    top = replicated(x.detach().amax(dim=dim, keepdim=True))
+    total = settled(torch.sum(torch.exp(x - top), dim=dim))
+    return torch.log(total) + top.squeeze(dim)
+
+
+def _ranges(rows: int, parts: int, limit: int) -> list:
+    """The [start, stop) of each of ``parts`` equal shards of ``rows``
+    rows, clipped to the first ``limit``."""
+    step = rows // parts
+    return [(min(i * step, limit), min((i + 1) * step, limit))
+            for i in range(parts)]
+
+
+def _padded_shard(local: torch.Tensor, rows: int, mesh: Any,
+                  mesh_dim: int) -> torch.Tensor:
+    """This rank's shard of a table of ``n * local.shape[0]`` rows split
+    evenly over mesh dim ``mesh_dim`` of ``n`` ranks, once padded with
+    zero rows to ``rows``: the rows it holds stay, and the rows that other
+    ranks hold come in one all-to-all of only what moves."""
+    n, me = mesh.size(mesh_dim), mesh.get_local_rank(mesh_dim)
+    held = local.shape[0] * n
+    old, new = _ranges(held, n, held), _ranges(rows, n, held)
+
+    def moved(src: int, dst: int) -> tuple:
+        """The rows ``src`` holds that ``dst``'s padded shard takes."""
+        lo = max(old[src][0], new[dst][0])
+        return lo, max(lo, min(old[src][1], new[dst][1]))
+
+    def mine(dst: int) -> torch.Tensor:
+        lo, hi = moved(me, dst)
+        return local[lo - old[me][0]:hi - old[me][0]]
+
+    pieces = [local[:0]] * n
+    if n > 1:
+        sends = [local[:0] if j == me else mine(j) for j in range(n)]
+        recv = [0 if j == me else moved(j, me)[1] - moved(j, me)[0]
+                for j in range(n)]
+        got = _Exchange.apply(torch.cat(sends), recv,
+                              [t.shape[0] for t in sends],
+                              mesh.get_group(mesh_dim))
+        pieces = list(torch.split(got, recv))
+    pieces[me] = mine(me)
+    width = rows // n - sum(t.shape[0] for t in pieces)
+    return torch.cat([*pieces, local.new_zeros(width, *local.shape[1:])])
+
+
+def _all_to_all(x: torch.Tensor, recv: list, send: list,
+                group: Any) -> torch.Tensor:
+    from torch.distributed._functional_collectives import (
+        all_to_all_single, wait_tensor)
+    return wait_tensor(all_to_all_single(x, recv, send, group))
+
+
+class _Exchange(torch.autograd.Function):
+    """One all-to-all of rows among a mesh dim's ranks (``send[j]`` rows
+    to rank j, ``recv[j]`` from it); its gradient goes back the other way,
+    in one all-to-all of the same rows."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, recv: list, send: list,
+                group: Any) -> torch.Tensor:
+        ctx.recv, ctx.send, ctx.group = recv, send, group
+        return _all_to_all(x, recv, send, group)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return (_all_to_all(grad.contiguous(), ctx.send, ctx.recv,
+                            ctx.group), None, None, None)
+
+
+def pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """``x`` with zero rows appended up to ``rows``. A DTensor keeps its
+    layout: where a mesh dim shards its rows, each rank keeps the rows of
+    its padded shard that it holds and receives the rest from the ranks
+    that hold them (one all-to-all of the rows that move; GSPMD pads a
+    sharded dim with collective permutes), so no rank gathers ``x``; a
+    replicated one is padded where it is.
+
+    Raises:
+        ValueError: ``x``'s rows sharded over more than one mesh dim, or
+            ``rows`` not split evenly over that mesh dim.
+    """
+    dims = [i for i, p in enumerate(getattr(x, "placements", ()))
+            if isinstance(p, Shard) and p.dim == 0]
+    if not dims:
+        return torch.cat([x, torch.zeros(rows - x.shape[0], *x.shape[1:],
+                                         dtype=x.dtype, device=x.device)])
+    mesh = x.device_mesh
+    if len(dims) > 1 or rows % mesh.size(dims[0]):
+        raise ValueError(f"pad_rows: {rows} rows on placements "
+                         f"{x.placements} of mesh {mesh.shape}")
+    from torch.distributed.tensor.experimental import local_map
+    where = list(x.placements)
+    return local_map(lambda t: _padded_shard(t, rows, mesh, dims[0]),
+                     out_placements=where, in_placements=(where,),
+                     device_mesh=mesh)(x)
+
+
 def per_shard(fn, *tensors: torch.Tensor, dims: tuple = (0, 1)):
     """``fn(*tensors)`` for a computation that is independent along
     ``dims`` (attention over batch and heads): on DTensors, each rank runs
@@ -417,7 +616,15 @@ def param_path_str(path: Sequence) -> str:
 
 def param_specs(params: Any) -> Any:
     """A spec for each leaf of a parameter tree in the reference's stacked
-    layout (the leading layer dim of a stacked leaf is never sharded)."""
+    layout (the leading layer dim of a stacked leaf is never sharded).
+
+    The reference's, but for one fault of its rules, which the port
+    repairs: a rule of two dims on a leaf stacked twice (zamba2's and the
+    xLSTM's superblocks) is padded to the wrong arity, and for
+    ``mamba/out_proj`` and ``mlstm/down`` that puts ``model`` on the
+    blocks of a superblock, not on d_inner as the rule means. There the
+    port right-aligns the rule: d_inner over ``model`` wherever that axis
+    divides it (and FSDP's data axes on a later free dim)."""
     sizes = _mesh_axis_sizes()
 
     def spec_for(path, leaf):
@@ -433,6 +640,15 @@ def param_specs(params: Any) -> Any:
                     # reference takes them
                     body = axes[-(ndim - lead):] if ndim > lead else []
                 full = [None] * lead + list(body)
+                layers = max(lead, ndim - len(axes))
+                if any(e is not None for e in full[lead:layers]):
+                    # ... except where that puts an axis on a layer dim
+                    # (out_proj's and down's [model, None]: model over the
+                    # blocks of a superblock, which the reference does,
+                    # src/repro/models/sharding.py:160-165): the rule is
+                    # meant for the leaf's last dims
+                    full = [None] * layers + list(axes)
+                    lead = layers
                 if _FSDP and ndim - lead >= 2:
                     # shard the first free dim over the data axes
                     for i in range(lead, ndim):

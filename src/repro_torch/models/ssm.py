@@ -17,7 +17,6 @@ A_log, dt_bias, D and the norm scale are used in f32.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from ..kernels import (chunked_linear_attention, linear_attention,
                        linear_attention_plain)
@@ -68,7 +67,10 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     """Depthwise causal conv along time. x: (B, T, C); w: (W, C)."""
     W = w.shape[0]
     T = x.shape[1]
-    pad = F.pad(x, (0, 0, W - 1, 0))
+    # zeros concatenated, not F.pad: torch 2.11's DTensor mis-places a
+    # padded tensor (the same values)
+    pad = torch.cat([x.new_zeros(()).expand(x.shape[0], W - 1, x.shape[2]),
+                     x], dim=1)
     out = pad[:, 0:T, :] * w[0].to(x.dtype)
     for i in range(1, W):
         out = out + pad[:, i:i + T, :] * w[i].to(x.dtype)

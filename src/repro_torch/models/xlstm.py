@@ -27,7 +27,7 @@ from ..kernels import (chunked_linear_attention, linear_attention,
                        linear_attention_plain)
 from .layers import (_normal, dense, init_dense, init_rmsnorm, rmsnorm,
                      sigmoid, silu, softplus)
-from .sharding import flatten, shard, unflatten
+from .sharding import einsum, flatten, shard, unflatten
 
 Params = dict
 
@@ -134,8 +134,8 @@ def mlstm_decode(p: Params, x: torch.Tensor, cache: Params, *,
     C = cache["C"] * f_g[..., None, None] + \
         (i_g[..., None] * k)[..., :, None] * v[..., None, :]
     n = cache["n"] * f_g[..., None] + i_g[..., None] * k
-    num = torch.einsum("bhk,bhkv->bhv", q, C)
-    den = torch.einsum("bhk,bhk->bh", q, n)
+    num = einsum("bhk,bhkv->bhv", q, C, batch=2)
+    den = einsum("bhk,bhk->bh", q, n, batch=2)
     h = num / torch.clamp(torch.abs(den), min=1.0)[..., None]
     h = flatten(h, 1)[:, None].to(x.dtype)
     h = rmsnorm(p["norm"], h) * silu(gate)

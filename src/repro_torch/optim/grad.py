@@ -63,6 +63,7 @@ def accumulate_grads(loss_fn: Callable, params: Params,
     gradient comes from ``torch.autograd.grad`` with respect to detached
     views of the leaves (``params`` itself keeps no graph), and the
     gradients are summed in microbatch order, then divided by their count.
+    Partitioned, each gradient comes back on its parameter's placements.
     """
     total_loss = 0.0
     acc = None
@@ -71,7 +72,18 @@ def accumulate_grads(loss_fn: Callable, params: Params,
         total_loss = total_loss + loss
         acc = grads if acc is None else tree_map(torch.add, acc, grads)
     n = len(microbatches)
-    return total_loss / n, tree_map(lambda x: x / n, acc)
+    return total_loss / n, tree_map(_placed_as, tree_map(lambda x: x / n,
+                                                         acc), params)
+
+
+def _placed_as(grad: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
+    """A partitioned gradient on its parameter's placements: its pending
+    sums reduced once, here, rather than by every optimizer op that reads
+    it; a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(grad, DTensor):
+        return grad
+    return grad.redistribute(param.device_mesh, param.placements)
 
 
 def value_and_grad(loss_fn: Callable, params: Params, batch: dict

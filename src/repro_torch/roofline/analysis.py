@@ -25,7 +25,9 @@ way.
 from __future__ import annotations
 
 import dataclasses
+import os
 import re
+import sys
 import weakref
 from typing import Any, Optional
 
@@ -108,6 +110,52 @@ _TRACED_KINDS = {
 }
 _FUNCOL = ("_c10d_functional", "c10d_functional")
 _NOT_COLLECTIVES = ("wait_tensor", "_wrap_tensor_autograd")
+# DTensor's Shard(i) -> Shard(j) redistribution: one all-to-all, which it
+# issues as an all-gather and a chunk on a CPU mesh (Gloo has none)
+_ALLTOALL = "shard_dim_alltoall"
+_OWN = os.sep + "repro_torch" + os.sep
+_NOT_OWN = tuple(os.path.join("repro_torch", *p) for p in (
+    ("models", "sharding.py"), ("roofline", ""), ("launch", ""),
+    ("tree.py",)))
+_HELPERS = os.path.join("repro_torch", "models", "sharding.py")
+_TRACEBACK_RE = re.compile(r'File "([^"]+)", line \d+, in (\S+)')
+
+
+def _own_frames(frames) -> list:
+    """The two innermost of ``frames`` ((file, function) pairs, innermost
+    first) that are the port's own code, outermost first, the sharding
+    helpers, the dry run and the counter left out: a collective that a
+    helper issues is booked to the function that calls it."""
+    names = [name.rsplit("<locals>.", 1)[-1] for path, name in frames
+             if _OWN in path and not any(n in path for n in _NOT_OWN)]
+    return names[:2][::-1]
+
+
+def _issuer(dtensor_op: str) -> str:
+    """What issues the collective being dispatched: the port's functions
+    around it (in a backward pass "grad of" those of the forward op, when
+    anomaly mode has recorded its traceback, else the autograd node), then
+    the sharding helper they called (the outermost), else an explicit
+    redistribute, else ``dtensor_op``, the DTensor op being dispatched."""
+    frames, what = [], dtensor_op
+    frame = sys._getframe(2)
+    while frame is not None:
+        code = frame.f_code
+        if code.co_filename.endswith(_HELPERS):
+            what = code.co_qualname
+        elif code.co_name == "redistribute" and \
+                code.co_filename.endswith("_api.py") and \
+                what == dtensor_op:
+            what = "redistribute"
+        frames.append((code.co_filename, code.co_qualname))
+        frame = frame.f_back
+    where = _own_frames(frames)
+    node = torch._C._current_autograd_node()
+    if node is not None:
+        trace = "".join(node.metadata.get("traceback_", []))
+        found = _TRACEBACK_RE.findall(trace)[::-1]
+        where = ["grad of"] + (_own_frames(found) or [node.name()])
+    return " ".join(where + [what])
 
 
 class TraceCounter(TorchDispatchMode):
@@ -122,12 +170,27 @@ class TraceCounter(TorchDispatchMode):
     counted once however many views share them, and freed when the last
     view dies. Ops that DTensor runs on fake global tensors to derive an
     output's shape are not counted.
+
+    DTensor's Shard -> Shard redistribution (``shard_dim_alltoall``, which
+    the counter wraps while it is entered) is one all-to-all: it is booked
+    as an all-to-all of the bytes it returns, its result is what stays
+    live, and what a CPU mesh runs for it instead (an all-gather of the
+    whole dim and a chunk) is neither counted nor held. ``by_op``
+    splits the bytes by kind and by what issued them: the model functions
+    around the collective (the two innermost, outermost first; "grad of"
+    them in a backward pass, named from the forward op's traceback where
+    anomaly mode records one, else from the autograd node) and the DTensor
+    op it serves (an explicit ``redistribute``, or the aten op).
     """
 
     def __init__(self) -> None:
         super().__init__()
         self.collectives: dict[str, float] = {}
+        self.by_op: dict[tuple[str, str], float] = {}
         self.flops = 0
+        self._dtensor_op = "?"
+        self._quiet = 0
+        self._wrapped: list = []
         self.live_bytes = 0
         self.peak_bytes = 0
         self._formulas = FlopCounterMode(display=False).flop_registry
@@ -158,11 +221,44 @@ class TraceCounter(TorchDispatchMode):
             if isinstance(leaf, torch.Tensor):
                 self._track(leaf)
 
+    def __enter__(self):
+        import torch.distributed.tensor._collective_utils as utils
+        original = utils.shard_dim_alltoall
+
+        def alltoall(local, gather_dim, shard_dim, mesh, mesh_dim):
+            self._quiet += 1
+            try:
+                out = original(local, gather_dim, shard_dim, mesh, mesh_dim)
+            finally:
+                self._quiet -= 1
+            self._book("all-to-all", local.numel() * local.element_size())
+            self._track(out)
+            return out
+
+        # every module that imported it by name (placement_types does)
+        for module in list(sys.modules.values()):
+            if getattr(module, "__dict__", {}).get(_ALLTOALL) is original:
+                setattr(module, _ALLTOALL, alltoall)
+                self._wrapped.append((module, original))
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        try:
+            return super().__exit__(*exc)
+        finally:
+            for module, original in self._wrapped:
+                setattr(module, _ALLTOALL, original)
+            self._wrapped = []
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
         if any(issubclass(t, DTensor) for t in types):
+            self._dtensor_op = func._overloadpacket.__name__
             return NotImplemented          # DTensor runs, then we see it
         out = func(*args, **(kwargs or {}))
+        if self._quiet:
+            # inside a Shard -> Shard redistribution: booked as a whole
+            return out
         if torch._C._get_dispatch_mode(
                 torch._C._TorchDispatchModeKey.FAKE) is not None:
             # DTensor deriving a global shape under FakeTensorMode: no op
@@ -176,12 +272,19 @@ class TraceCounter(TorchDispatchMode):
                    if isinstance(t, torch.Tensor)]
         if func.namespace in _FUNCOL and \
                 packet.__name__ not in _NOT_COLLECTIVES:
-            kind = _TRACED_KINDS.get(packet.__name__, packet.__name__)
-            self.collectives[kind] = self.collectives.get(kind, 0.0) + \
-                float(sum(t.numel() * t.element_size() for t in results))
+            self._book(_TRACED_KINDS.get(packet.__name__, packet.__name__),
+                       sum(t.numel() * t.element_size() for t in results))
         for t in results:
             self._track(t)
         return out
+
+
+    def _book(self, kind: str, nbytes: int) -> None:
+        op = _issuer(self._dtensor_op)
+        self.collectives[kind] = self.collectives.get(kind, 0.0) + \
+            float(nbytes)
+        self.by_op[kind, op] = self.by_op.get((kind, op), 0.0) + \
+            float(nbytes)
 
 
 @dataclasses.dataclass

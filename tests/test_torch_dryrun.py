@@ -35,6 +35,7 @@ from repro.models import cache_specs as ref_cache_specs
 from repro.models import count_params as ref_count_params
 from repro.models import param_specs as ref_param_specs
 from repro.roofline import flops as ref_flops
+from _torch_rules import intended
 from repro_torch.configs import ARCH_IDS, SHAPES, get_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import dryrun
@@ -71,7 +72,8 @@ def fsdp_off():
 def reference_analytic(arch, shape_name, mesh):
     """The analytic fields the reference's ``run_cell`` computes
     (``launch/dryrun.py:114-122``, ``:203-221``), on an abstract mesh of
-    the same axis sizes; and its FSDP decision."""
+    the same axis sizes, its parameter specs with the one repair the port
+    makes (``_torch_rules.intended``); and its FSDP decision."""
     cfg = dataclasses.replace(ref_config(arch), attn_impl="chunked",
                               mixer_impl="chunked", remat=True)
     shape = SHAPES[shape_name]
@@ -86,7 +88,7 @@ def reference_analytic(arch, shape_name, mesh):
         params = jax.eval_shape(model.init, jax.random.PRNGKey(0))
         n_params = ref_count_params(params)
         param_bytes = ref_dryrun.sharded_bytes(
-            params, ref_param_specs(params), fake)
+            params, intended(params, ref_param_specs(params)), fake)
         cache_bytes = 0.0
         if shape.kind == "train":
             state = 3 * param_bytes

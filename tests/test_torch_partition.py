@@ -7,9 +7,14 @@ unpartitioned, on the CPU.
   every parameter and cache leaf of reduced qwen3-0.6b, phi3.5-moe and
   zamba2-7b has, on rank 0, the local shard shape that the reference's
   ``NamedSharding(mesh, spec).shard_shape`` gives its stacked leaf, and
-  the local bytes sum to ``sharded_bytes``. The one leaf where the rules
-  shard a layer dim (zamba2's ``mamba/out_proj``, model over the 6 blocks
-  of a superblock) is held to that difference exactly.
+  the local bytes sum to the reference's, exactly. The one leaf where the
+  reference's rule lands on a layer dim (zamba2's ``mamba/out_proj``,
+  model over the blocks of a superblock) has d_inner over model in the
+  port, as the rule means (``_torch_rules``), at the same bytes.
+- A batch smaller than the data axis: every family's reduced config at
+  B 8, T 32 on the 16 x 16 mesh traces train, prefill and decode, and the
+  per-device state it places equals the reference's ``sharded_bytes``
+  (its specs with the one repair).
 - Numbers: on a real group of 4 gloo ranks on the CPU, (2, 2)
   ``("data", "model")``, reduced qwen3-0.6b in f32: the partitioned
   ``prefill_logits`` and one ``loss`` with its gradients equal the
@@ -18,7 +23,12 @@ unpartitioned, on the CPU.
   reference's ``Checkpointer`` restores with ``shardings=`` onto that mesh,
   each rank's local shard equal to its slice of the array.
 - The collective counter and the reference's ``collective_bytes`` agree on
-  one all-gather, one reduce-scatter and one all-reduce.
+  one all-gather, one reduce-scatter, one all-reduce and one all-to-all
+  (DTensor's Shard -> Shard redistribution, issued as an all-gather and a
+  chunk on a CPU mesh); ``pad_rows`` pads a sharded table by moving only
+  the rows that change ranks, so qwen3-0.6b's unembedding gathers no
+  table, and on four ranks each padded shard holds the right rows and
+  the gradient comes back to the ranks that hold them.
 - The dry run: each of the three families moves collective bytes on the
   (2, 2, 2) mesh (the reference's small dry run requires it), the card's
   layout none; no process group outlives a cell, and a fake group is
@@ -41,13 +51,17 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 import jax
+from jax.sharding import AbstractMesh, AxisType, PartitionSpec as P
 
 from repro.checkpoint import Checkpointer as RefCheckpointer
 from repro.configs import get_config as ref_config
 from repro.models import build_model as ref_build
+from repro.models import cache_specs as ref_cache_specs
+from repro.models import param_specs as ref_param_specs
 from repro.roofline import collective_bytes as ref_collective_bytes
+from _torch_rules import LAYER_DIM_RULES, intended
 from repro_torch import kernels
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import MeshLayout, fake_mesh, make_mesh
@@ -62,8 +76,6 @@ META = torch.device("meta")
 CUBE = MeshLayout(("pod", "data", "model"), (2, 2, 2))
 FAMILIES = ["qwen3-0.6b", "phi3.5-moe-42b-a6.6b", "zamba2-7b"]
 B, T = 8, 32
-# the rule of the wrong arity on zamba2's twice-stacked superblocks
-LAYER_DIM_SPLIT = "superblocks/mamba/out_proj/kernel"
 
 REFERENCE_SHARDS = r"""
 import os
@@ -138,7 +150,7 @@ def test_local_shards_are_the_references(arch, reference_shards):
         placed = {"params": sharding.place_params(trees["params"], mesh),
                   "cache": sharding.place_cache(trees["cache"], mesh)}
     assert not dist.is_initialized()
-    got_bytes = want_bytes = split_bytes = 0
+    got_bytes = want_bytes = ref_bytes = 0
     for kind, tree in trees.items():
         ref = reference_shards[arch][kind]
         stacked = reference_layout(tree)
@@ -155,22 +167,23 @@ def test_local_shards_are_the_references(arch, reference_shards):
             keys = [k for k in path if not isinstance(k, int)]
             key, lists = "/".join(keys), len(path) - len(keys)
             seen.add(key)
-            layers = list(_at(stacked, key).shape[:lists])
+            whole = list(_at(stacked, key).shape)
             local = list(leaf.to_local().shape)
-            nbytes = math.prod(local) * leaf.element_size()
-            got_bytes += nbytes
+            got_bytes += math.prod(local) * leaf.element_size()
             want = ref[key]
-            assert want[lists:] == local, key
-            if want[:lists] != layers:
-                # model over the blocks of a superblock: a list of layers
-                # is not split, so each rank keeps every block whole
-                assert key == LAYER_DIM_SPLIT and \
-                    want[:lists] == [layers[0], layers[1] // 2]
-                split_bytes += nbytes / 2
+            ref_bytes += math.prod(want) * leaf.element_size() / \
+                math.prod(whole[:lists])
+            if LAYER_DIM_RULES.search(key):
+                # the reference splits the blocks of a superblock; the port
+                # keeps them whole and splits d_inner over model
+                assert want == [*whole[:lists - 1], whole[lists - 1] // 2,
+                                *whole[lists:]], key
+                assert local == [whole[-2] // 2, whole[-1]], key
+                continue
+            assert want == whole[:lists] + local, key
         for key in set(ref) - seen:      # counters, empty stacks
             assert key.split("/")[-1] == "len" or 0 in ref[key], key
-    assert got_bytes == want_bytes + split_bytes
-    assert (split_bytes > 0) == (arch == "zamba2-7b")
+    assert got_bytes == want_bytes == ref_bytes
 
 
 def test_placements_split_pod_data_pod_major():
@@ -262,6 +275,24 @@ def run(rank, port, ckpt, out):
             "dtensor_grads": all(type(g).__name__ == "DTensor"
                                  for g in leaves(grads))}
 
+        # pad_rows on a 1-D mesh of the 4 ranks: 12 rows in shards of 3
+        # become 20 in shards of 5, rank 1's from three ranks
+        from torch.distributed.device_mesh import DeviceMesh
+        line = DeviceMesh("cpu", list(range(4)), mesh_dim_names=("model",))
+        rows = torch.arange(36.0).reshape(12, 3)
+        weight = torch.arange(60.0).reshape(20, 3)
+        sharded = sharding.distribute_tensor(rows, line, ("model",
+                                                          None))
+        sharded.requires_grad_()
+        padded = sharding.pad_rows(sharded, 20)
+        (padded * sharding.distribute_tensor(weight, line, ("model", None))
+         ).sum().backward()
+        result["pad_rows"] = bool(
+            torch.equal(padded.full_tensor(),
+                        torch.cat([rows, torch.zeros(8, 3)]))
+            and torch.equal(sharded.grad.full_tensor(), weight[:12])
+            and padded.to_local().shape == (5, 3))
+
         template = reference_layout(params)
         with sharding.use_mesh(mesh):
             specs = param_specs(template)
@@ -330,6 +361,10 @@ def test_partitioned_forward_and_gradients_equal_unpartitioned(four_ranks):
         assert r["grads"] <= 1e-5
 
 
+def test_padded_rows_come_from_the_ranks_that_hold_them(four_ranks):
+    assert all(r["pad_rows"] for r in four_ranks)
+
+
 def test_reference_checkpoint_restores_sharded_onto_four_ranks(four_ranks):
     for r in four_ranks:
         assert r["step"] == 7 and r["equal"]
@@ -358,6 +393,44 @@ def test_counter_agrees_with_collective_bytes():
             partial.redistribute(mesh, [Replicate(), Replicate()])
     assert counter.collectives == ref_collective_bytes(hlo) == {
         "all-gather": 512.0, "reduce-scatter": 256.0, "all-reduce": 512.0}
+
+
+def test_counter_books_a_shard_to_shard_redistribution_as_an_all_to_all():
+    """DTensor issues Shard(0) -> Shard(1) as an all-gather and a chunk on
+    a CPU mesh: booked as the all-to-all GSPMD would issue, of the bytes it
+    returns, and split by what issued it."""
+    hlo = ("%a2a = f32[8,8]{1,0} all-to-all(f32[8,8]{1,0} %x), "
+           "dimensions={1}")
+    with fake_mesh(MeshLayout(("data", "model"), (2, 2))) as mesh:
+        x = DTensor.from_local(torch.empty(4, 16), mesh,
+                               [Replicate(), Shard(0)])
+        with TraceCounter() as counter:
+            x.redistribute(mesh, [Replicate(), Shard(1)])
+    assert counter.collectives == ref_collective_bytes(hlo) == {
+        "all-to-all": 256.0}
+    assert counter.by_op == {("all-to-all", "redistribute"): 256.0}
+
+
+def test_unembedding_pads_the_table_without_gathering_it(small_cells):
+    """A qwen3-0.6b step on the (2, 2, 2) mesh: the tied table (256 rows,
+    vocab over model) padded to 2048 rows moves only the 128 rows that
+    its padded shards take from the other rank, as GSPMD's pad moves
+    them, where it was gathered whole; the bytes by op add up to the
+    bytes by kind."""
+    table = 256 * 64 * 4
+    for shape in ("train_4k", "decode_32k"):
+        got = dryrun.run_cell("qwen3-0.6b", shape, "multi", verbose=False)
+        by_op = {(kind, op): nbytes for kind, op, nbytes
+                 in got["coll_by_op"]}
+        gathered = sum(nbytes for (kind, op), nbytes in by_op.items()
+                       if kind == "all-gather" and "unembed" in op)
+        assert gathered < table, by_op
+        moved = [nbytes for (kind, op), nbytes in by_op.items()
+                 if op.endswith("unembed pad_rows")]
+        assert moved == [table / 2], by_op
+        for kind, total in got["coll_breakdown"].items():
+            assert sum(nbytes for (k, _), nbytes in by_op.items()
+                       if k == kind) == total
 
 
 def test_counter_tracks_live_bytes_and_flops():
@@ -409,6 +482,65 @@ def test_small_mesh_dry_run_moves_collective_bytes(small_cells, arch):
     assert (card["coll_bytes_per_dev"], card["coll_breakdown"],
             card["coll_source"]) == (0.0, {}, dryrun.COLL_SOURCES["card"])
     assert card["hbm_per_dev"] >= card["state_bytes_per_dev"]
+
+
+SQUARE = MeshLayout(("data", "model"), (16, 16))
+
+
+def _reference_state(arch):
+    """The reference's per-device bytes of reduced ``arch``'s parameters
+    and of its B 8, T 32 decode cache, then of the cache's length counters
+    (Python ints in the port), on the 16 x 16 mesh: its
+    ``sharded_bytes`` arithmetic (``launch/dryrun.py``) over its specs,
+    the parameters' with the one repair (``_torch_rules.intended``)."""
+    model = ref_build(ref_config(arch).reduced())
+    mesh = AbstractMesh(SQUARE.shape, SQUARE.mesh_dim_names,
+                        axis_types=(AxisType.Auto,) * 2)
+    sizes = dict(zip(SQUARE.mesh_dim_names, SQUARE.shape))
+
+    def nbytes(structs, specs, counters=False):
+        total = 0.0
+        for (path, leaf), spec in zip(
+                jax.tree_util.tree_leaves_with_path(structs),
+                jax.tree.leaves(specs, is_leaf=lambda x: isinstance(x, P))):
+            if (getattr(path[-1], "key", None) == "len") != counters:
+                continue
+            shards = math.prod(sizes[a] for e in spec if e is not None
+                               for a in (e if isinstance(e, tuple)
+                                         else (e,)))
+            total += math.prod(leaf.shape) * leaf.dtype.itemsize / shards
+        return total
+
+    with jax.sharding.use_abstract_mesh(mesh):
+        params = jax.eval_shape(model.init, jax.random.PRNGKey(0))
+        cache = jax.eval_shape(lambda: model.init_cache(B, T))
+        c_specs = ref_cache_specs(cache)
+        return (nbytes(params, intended(params, ref_param_specs(params))),
+                nbytes(cache, c_specs), nbytes(cache, c_specs, True))
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_batch_smaller_than_the_data_axis_traces(small_cells, arch):
+    """B 8 on a data axis of 16: the rules drop the axis from the batch,
+    and no product shards its folded rows where it cannot unfold them."""
+    for shape in ("train_4k", "prefill_32k", "decode_32k"):
+        got = dryrun.run_cell(arch, shape, "single", verbose=False)
+        assert got["status"] == "ok" and got["chips"] == 256, shape
+        assert got["coll_bytes_per_dev"] == sum(
+            got["coll_breakdown"].values())
+        assert got["hbm_per_dev"] >= got["state_bytes_per_dev"] > 0
+    model = build_model(get_config(arch).reduced())
+    params = model.init(torch.Generator().manual_seed(0), META)
+    cache = model.init_cache(B, T, device=META)
+    with fake_mesh(SQUARE) as mesh:
+        placed = [sharding.place_params(params, mesh),
+                  sharding.place_cache(cache, mesh)]
+    local = [sum(math.prod(leaf.to_local().shape) * leaf.element_size()
+                 for _, leaf in leaves_with_path(tree)
+                 if isinstance(leaf, DTensor)) for tree in placed]
+    *want, counters = _reference_state(arch)
+    assert local == want
+    assert got["state_bytes_per_dev"] == sum(want) + counters   # decode's
 
 
 def test_no_group_outlives_a_fake_mesh_and_none_starts_over_a_live_one():
