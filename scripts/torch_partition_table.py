@@ -15,8 +15,10 @@ step each:
   its forward op;
 - the reference: the step lowered and compiled by GSPMD for 8 forced host
   devices (in a subprocess, so its XLA_FLAGS do not reach this process),
-  its parameter specs with the one repair the port makes (zamba2's
-  out_proj: d_inner over model), so both place the same layout,
+  its parameter and cache specs with the two repairs the port makes
+  (``tests/_torch_rules.py``: zamba2's out_proj, d_inner over model; its
+  twice-stacked ``super`` caches, the batch over pod and data and model
+  on what follows), so both place the same layout,
   ``collective_bytes`` of the compiled HLO and ``memory_analysis``'s
   argument + temp + output bytes, as its ``run_cell`` reads them, and the
   same bytes split by the op that issued each collective: the two
@@ -48,7 +50,6 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from repro.configs import get_config
 from repro.launch.mesh import make_mesh
 from repro.models import build_model, cache_specs, param_specs
-from repro.models import sharding as ref_sharding
 from repro.models.sharding import batch_spec
 from repro.optim import AdamW, clip_by_global_norm
 from repro.roofline import collective_bytes
@@ -112,25 +113,12 @@ def by_op(text):
         out[key] = out.get(key, 0.0) + float(_shape_bytes(m.group(1))
                                              * mult)
     return out
+# the reference's specs with the two repairs the port makes
+from _torch_rules import intended, intended_cache
+
 mesh = make_mesh((2, 2, 2), ("pod", "data", "model"))
 named = lambda tree: jax.tree.map(lambda s: NamedSharding(mesh, s), tree,
                                   is_leaf=lambda x: isinstance(x, P))
-
-
-def intended(params, specs):
-    # the one fault of the reference's rules that the port repairs: the
-    # [model, None] rule of out_proj and down on twice-stacked superblocks
-    # right-aligned (d_inner over model), so both partitioners place the
-    # same layout
-    sizes = ref_sharding._mesh_axis_sizes()
-
-    def fix(path, leaf, spec):
-        if not re.search(r"superblocks/(mamba/out_proj|mlstm/mlstm/down)/"
-                         r"kernel$", ref_sharding.param_path_str(path)):
-            return spec
-        return ref_sharding._resolve([None] * (leaf.ndim - 2)
-                                     + ["model", None], leaf.shape, sizes)
-    return jax.tree_util.tree_map_with_path(fix, params, specs)
 
 
 def footprint(compiled):
@@ -167,7 +155,7 @@ for arch in sys.argv[3:]:
                         ).lower(ps, os_, batch).compile()
         rows = [("train_4k", train)]
         cache = jax.eval_shape(lambda: model.init_cache(B, T))
-        c_sh = named(cache_specs(cache))
+        c_sh = named(intended_cache(cache, cache_specs(cache)))
         tok = jax.ShapeDtypeStruct((B, 1), jnp.int32)
         decode = jax.jit(lambda p, c, x: model.decode_step(p, x, c),
                          in_shardings=(p_sh, c_sh, NamedSharding(
@@ -242,7 +230,8 @@ def compare(port: dict, ref: dict) -> dict:
 
 def main() -> None:
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        os.path.join(ROOT, d) for d in ("src", "tests")))
     env.pop("XLA_FLAGS", None)
     ref = subprocess.run([sys.executable, "-c", REFERENCE, str(B), str(T),
                           *FAMILIES], env=env, capture_output=True,

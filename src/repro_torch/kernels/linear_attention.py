@@ -108,6 +108,28 @@ def linear_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return out.to(q.dtype)
 
 
+class _PrefixSum(torch.autograd.Function):
+    """``torch.cumsum(x, -1)`` whose backward forms the reverse prefix sum
+    of the gradient as ``g.sum(-1) - g.cumsum(-1) + g`` (in the gradient's
+    dtype), where ``cumsum``'s own backward flips the gradient twice: torch
+    2.11's DTensor has no sharding strategy for ``flip``, so a partitioned
+    training step through the chunked forms would not trace there."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        return torch.cumsum(x, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        return g.sum(dim=-1, keepdim=True) - torch.cumsum(g, dim=-1) + g
+
+
+def prefix_sum(x: torch.Tensor) -> torch.Tensor:
+    """The inclusive prefix sum of ``x`` along its last dim, differentiable
+    without ``flip`` (see :class:`_PrefixSum`)."""
+    return _PrefixSum.apply(x)
+
+
 def _chunk_step(S: torch.Tensor, qc: torch.Tensor, kc: torch.Tensor,
                 vc: torch.Tensor, ld: torch.Tensor, above: torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -120,7 +142,7 @@ def _chunk_step(S: torch.Tensor, qc: torch.Tensor, kc: torch.Tensor,
     forms it for every (i, j) and masks after the product, so under steep
     decays its masked entries are inf and its gradient is inf * 0.
     """
-    cum = torch.cumsum(ld.double(), dim=-1)                    # (BH, C)
+    cum = prefix_sum(ld.double())                              # (BH, C)
     total = cum[:, -1:]
     diff = (cum[:, :, None] - cum[:, None, :]).float()
     gamma = torch.exp(diff.masked_fill(above, float("-inf")))

@@ -27,7 +27,12 @@ group and moves no collective bytes, and its ``traced_flops`` and
 ``hbm_per_dev`` are the whole step's. Beside them, the reference's
 analytic accounting on the mesh's axis sizes: the parameter count, the
 per-device state under the sharding rules, the roofline's FLOPs and bytes
-and the model FLOPs. ``trace_seconds`` is the trace's wall time.
+and the model FLOPs. ``trace_seconds`` is the trace's wall time, and
+``cache_bytes_by_leaf`` the placed cache's bytes, in all and on rank 0,
+by leaf (decode cells).
+
+``--all`` traces the grid one cell a child process, several at a time,
+with no device visible (:func:`run_cells`), and prints a summary.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-0.6b --shape train_4k --mesh card
@@ -137,9 +142,9 @@ def trace_step(model, params: Any, batch: dict, shape: ShapeConfig,
                mesh: Optional[Any] = None) -> TraceCounter:
     """Trace one step on the tensors' device (the meta device in the dry
     run): train (``accum`` microbatches, clipping, AdamW), prefill, or one
-    decode step against ``cache``. With a ``DeviceMesh``, the parameters,
-    cache and each microbatch are placed on it by the rules first, and the
-    step runs partitioned.
+    decode step against ``cache``. With a ``DeviceMesh``, the parameters
+    and each microbatch are placed on it by the rules first (the cache
+    comes placed: :func:`place_cache`), and the step runs partitioned.
 
     Returns:
         The :class:`TraceCounter` of the step: collective bytes by kind,
@@ -153,8 +158,6 @@ def trace_step(model, params: Any, batch: dict, shape: ShapeConfig,
     run = contextlib.nullcontext()
     if mesh is not None:
         params = place_params(params, mesh)
-        if cache is not None:
-            cache = place_cache(cache, mesh)
         with use_mesh(mesh):
             micro = [{k: distribute_tensor(v, mesh, batch_spec(v.shape))
                       for k, v in mb.items()} for mb in micro]
@@ -250,6 +253,22 @@ def account(model, params: Any, shape: ShapeConfig, mesh: Any, *,
     return roof, state_bytes_dev
 
 
+def leaf_bytes(tree: Any) -> dict:
+    """The bytes of a tree's tensor leaves, in all and a device (a
+    DTensor's local shard; a plain tensor is whole on its device), summed
+    by the leaf's path without its layer indices (``super/state``)."""
+    out: dict = {}
+    for path, leaf in leaves_with_path(tree):
+        if not isinstance(leaf, torch.Tensor):
+            continue
+        key = "/".join(str(k) for k in path if not isinstance(k, int))
+        local = leaf.to_local() if isinstance(leaf, DTensor) else leaf
+        whole, dev = out.get(key, (0, 0))
+        out[key] = (whole + leaf.numel() * leaf.element_size(),
+                    dev + local.numel() * local.element_size())
+    return {k: list(v) for k, v in out.items()}
+
+
 def layout_for(mesh: str) -> MeshLayout:
     """The axis names and sizes of ``mesh``: single, multi or card."""
     if mesh == "card":
@@ -294,6 +313,9 @@ def run_cell(arch: str, shape_name: str, mesh: str = "single",
     accum = GRAD_ACCUM.get((arch, shape_name), 1)
     with (contextlib.nullcontext() if mesh == "card"
           else fake_mesh(layout)) as device_mesh:
+        if cache is not None and device_mesh is not None:
+            cache = place_cache(cache, device_mesh)
+        cache_bytes = leaf_bytes(cache)
         counter = trace_step(model, params, batch, shape, accum, cache,
                              device_mesh)
     trace_s = time.perf_counter() - t0
@@ -303,6 +325,7 @@ def run_cell(arch: str, shape_name: str, mesh: str = "single",
     out = {"status": "ok", "n_params": count_params(params),
            "trace_seconds": round(trace_s, 1),
            "state_bytes_per_dev": state_bytes_dev,
+           "cache_bytes_by_leaf": cache_bytes,
            "memory_analysis": {},
            "coll_source": COLL_SOURCES["card" if mesh == "card"
                                        else "partitioned"],
@@ -325,7 +348,78 @@ def run_cell(arch: str, shape_name: str, mesh: str = "single",
     return out
 
 
-def main(argv: Optional[list[str]] = None) -> None:
+# the grid runs each cell in a process of its own (a process holds one
+# fake process group), this many at a time: one core left to the parent
+JOBS = max(1, (os.cpu_count() or 2) - 1)
+
+
+def cell_key(arch: str, shape: str, mesh: str) -> str:
+    """The name of a cell's files under ``--out``."""
+    return f"{arch}__{shape}__{mesh}".replace("/", "_")
+
+
+def run_cells(cells: list, out: str,
+              timeout: Optional[float] = None) -> list[dict]:
+    """Each of ``cells`` (arch, shape, mesh) through :func:`run_cell` in a
+    child process of its own (``python -m repro_torch.launch.dryrun
+    --arch A --shape S --mesh M --out OUT``), with no device visible (the
+    trace needs none), :data:`JOBS` at a time in the order given. Each
+    child writes its record to ``OUT/<cell>.json`` (a cell whose record is
+    there already is not traced again) and its output to
+    ``OUT/<cell>.log``.
+
+    Returns:
+        The records in the order of ``cells``. A child that fails, or is
+        still running ``timeout`` s after the first one started (it is
+        then killed), gives ``{"status": "exit N"}`` or ``{"status":
+        "timeout"}`` with the path of its ``log``.
+    """
+    import subprocess
+    import sys
+    from concurrent.futures import ThreadPoolExecutor
+
+    out = os.path.abspath(out)
+    os.makedirs(out, exist_ok=True)
+    src = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    paths = [src] + [p for p in [os.environ.get("PYTHONPATH")] if p]
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join(paths))
+    deadline = None if timeout is None else time.perf_counter() + timeout
+
+    def one(cell: tuple) -> dict:
+        arch, shape, mesh = cell
+        key = cell_key(arch, shape, mesh)
+        failed = {"arch": arch, "shape": shape, "mesh": mesh,
+                  "log": os.path.join(out, key + ".log")}
+        with open(failed["log"], "w") as log:
+            try:
+                code = subprocess.run(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     "--arch", arch, "--shape", shape, "--mesh", mesh,
+                     "--out", out], env=env, stdout=log,
+                    stderr=subprocess.STDOUT,
+                    timeout=None if deadline is None else max(
+                        1.0, deadline - time.perf_counter())).returncode
+            except subprocess.TimeoutExpired:
+                return {**failed, "status": "timeout"}
+        path = os.path.join(out, key + ".json")
+        if code or not os.path.exists(path):
+            return {**failed, "status": f"exit {code}"}
+        with open(path) as f:
+            return json.load(f)
+
+    with ThreadPoolExecutor(JOBS) as pool:
+        return list(pool.map(one, cells))
+
+
+def main(argv: Optional[list[str]] = None) -> int:
+    """One cell in this process, or with ``--all`` every arch x shape on
+    the single and multi meshes through :func:`run_cells`, then a summary
+    (the torch version, the count of cells by status, the grid's wall
+    time, the five slowest cells' ``trace_seconds``), printed and written
+    to ``OUT/summary.json``. Returns 1 if a cell of the grid is neither
+    ``ok`` nor ``skipped`` (long_500k on quadratic attention), else 0."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS)
     ap.add_argument("--shape", choices=list(SHAPES))
@@ -335,27 +429,40 @@ def main(argv: Optional[list[str]] = None) -> None:
     args = ap.parse_args(argv)
 
     os.makedirs(args.out, exist_ok=True)
-    cells = []
     if args.all:
-        for arch in ARCH_IDS:
-            for shape in SHAPES:
-                for mesh in ("single", "multi"):
-                    cells.append((arch, shape, mesh))
-    else:
-        if not args.arch or not args.shape:
-            ap.error("--arch and --shape required without --all")
-        cells = [(args.arch, args.shape, args.mesh)]
-
-    for arch, shape, mesh in cells:
-        key = f"{arch}__{shape}__{mesh}".replace("/", "_")
-        path = os.path.join(args.out, key + ".json")
-        if os.path.exists(path):
-            print(f"[skip existing] {key}")
-            continue
-        result = run_cell(arch, shape, mesh)
-        with open(path, "w") as f:
-            json.dump(result, f, indent=1)
+        cells = [(arch, shape, mesh) for arch in ARCH_IDS for shape in SHAPES
+                 for mesh in ("single", "multi")]
+        t0 = time.perf_counter()
+        records = run_cells(cells, args.out)
+        status: dict = {}
+        for rec in records:
+            status[rec["status"]] = status.get(rec["status"], 0) + 1
+            if rec["status"] not in ("ok", "skipped"):
+                print(f"FAILED {rec['arch']} {rec['shape']} {rec['mesh']}: "
+                      f"{rec['status']}, see {rec['log']}", flush=True)
+        summary = {"torch": torch.__version__, "cells": len(cells),
+                   "status": status, "jobs": JOBS,
+                   "wall_seconds": round(time.perf_counter() - t0, 1),
+                   "slowest_trace_seconds": sorted(
+                       ([rec["trace_seconds"], " ".join(cell)] for cell, rec
+                        in zip(cells, records) if rec["status"] == "ok"),
+                       reverse=True)[:5]}
+        with open(os.path.join(args.out, "summary.json"), "w") as f:
+            json.dump(summary, f, indent=1)
+        print(json.dumps(summary), flush=True)
+        return 0 if set(status) <= {"ok", "skipped"} else 1
+    if not args.arch or not args.shape:
+        ap.error("--arch and --shape required without --all")
+    path = os.path.join(args.out,
+                        cell_key(args.arch, args.shape, args.mesh) + ".json")
+    if os.path.exists(path):
+        print(f"[skip existing] {cell_key(args.arch, args.shape, args.mesh)}")
+        return 0
+    result = run_cell(args.arch, args.shape, args.mesh)
+    with open(path, "w") as f:
+        json.dump(result, f, indent=1)
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    raise SystemExit(main())

@@ -20,7 +20,9 @@ from __future__ import annotations
 import torch
 
 from .layers import _normal, dense, init_dense, silu
-from .sharding import pinned, replicated, shard
+from .sharding import (MODEL_AXIS, SUM, folded, map_shards, pinned,
+                       replicated, rule_axes, settled, shard, shard_range,
+                       split_axes)
 
 Params = dict
 
@@ -60,9 +62,11 @@ def route(p: Params, xf: torch.Tensor, *, num_experts: int, top_k: int,
     """The dispatch of (N, d) tokens.
 
     Returns:
-        ``sorted_token``, ``sorted_gate`` and ``slot`` of the (token, k)
-        pairs in expert order, ``keep`` (False where the pair was dropped
-        for capacity), ``capacity`` and the Switch-style ``aux`` loss.
+        ``sorted_token`` of the (token, k) pairs in expert order, ``keep``
+        (False where the pair was dropped for capacity) and ``slot`` in
+        that order; ``pair_slot``, ``pair_keep`` and ``pair_gate``, the
+        same per pair in token order (token-major, k a token); ``capacity``
+        and the Switch-style ``aux`` loss.
     """
     N = xf.shape[0]
     logits = dense(p["router"], xf.float())                     # (N, E)
@@ -84,17 +88,52 @@ def route(p: Params, xf: torch.Tensor, *, num_experts: int, top_k: int,
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(N * top_k, device=xf.device) - starts[sorted_expert]
     keep = rank < capacity
-    return {"sorted_token": flat_token[order],
-            "sorted_gate": gate_vals.reshape(-1)[order],
-            "keep": keep,
-            "slot": sorted_expert * capacity + torch.where(keep, rank, 0),
+    slot = sorted_expert * capacity + torch.where(keep, rank, 0)
+    back = torch.argsort(order)         # each pair's place in expert order
+    return {"sorted_token": flat_token[order], "keep": keep, "slot": slot,
+            "pair_slot": slot[back], "pair_keep": keep[back],
+            "pair_gate": gate_vals.reshape(-1),
             "capacity": capacity, "aux": aux}
+
+
+def _scatter(x: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor, *,
+             top_k: int, lo: int, rows: int) -> torch.Tensor:
+    """Rows ``lo:lo + rows`` of the (E * C, d) expert buffer that the
+    (token, k) pairs of the tokens ``x`` fill, the pairs in token order:
+    each kept pair whose slot falls there adds its token; a pair dropped,
+    or bound for other rows, adds zero to row 0 (every slot is one pair's,
+    so the sum is exact)."""
+    mine = keep & (slot >= lo) & (slot < lo + rows)
+    src = torch.where(mine[:, None], x.repeat_interleave(top_k, dim=0),
+                      torch.zeros((), dtype=x.dtype, device=x.device))
+    return x.new_zeros(rows, x.shape[1]).index_add(
+        0, torch.where(mine, slot - lo, 0), src)
+
+
+def _gather(out: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
+            gate: torch.Tensor, *, top_k: int, lo: int) -> torch.Tensor:
+    """The f32 gate-weighted sum, per token, of its pairs' rows of the
+    expert outputs, where ``out`` holds rows ``lo:lo + len(out)`` of them
+    (the pairs in token order; a pair dropped, or whose row is elsewhere,
+    adds zero)."""
+    mine = keep & (slot >= lo) & (slot < lo + out.shape[0])
+    contrib = out[torch.where(mine, slot - lo, 0)].float() * \
+        (gate * mine)[:, None]
+    token = torch.arange(slot.shape[0], device=out.device) // top_k
+    return contrib.new_zeros(slot.shape[0] // top_k, out.shape[1]).index_add(
+        0, token, contrib)
 
 
 def moe_layer(p: Params, x: torch.Tensor, *, num_experts: int, top_k: int,
               capacity_factor: float = 1.25
               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, T, d) -> (out in x's dtype, f32 aux loss)."""
+    """x: (B, T, d) -> (out in x's dtype, f32 aux loss).
+
+    Under a mesh no token row moves: each rank scatter-adds the pairs of
+    its own tokens into the expert rows it holds (a partial sum over the
+    batch axes, then all-reduced), and gathers its tokens' outputs from
+    them (a partial sum over the expert axis, all-reduced in f32), as
+    GSPMD partitions the reference's scatter-adds."""
     B, T, d = x.shape
     # tokens, and their gradient, over the batch axes only: a (B * T) dim
     # split over two mesh dims is one DTensor cannot view apart again
@@ -102,18 +141,21 @@ def moe_layer(p: Params, x: torch.Tensor, *, num_experts: int, top_k: int,
                ("pod", "data"), None)
     r = route(p, xf, num_experts=num_experts, top_k=top_k,
               capacity_factor=capacity_factor)
-    keep, slot, C = r["keep"], r["slot"], r["capacity"]
-
-    # gather tokens into (E * C, d); a dropped pair adds zero to slot 0.
-    # New buffers are built whole (under a mesh: replicated) and the
-    # expert axis pinned over model where the reference pins it.
-    zero = torch.zeros((), dtype=x.dtype, device=x.device)
-    gathered = shard(torch.where(keep[:, None], xf[r["sorted_token"]], zero),
-                     ("pod", "data"), None)
-    # index_add: no sharded strategy (torch 2.11 runs it on the shards)
-    buf = torch.zeros(num_experts * C, d, dtype=x.dtype,
-                      device=x.device).index_add(0, slot,
-                                                 replicated(gathered))
+    C = r["capacity"]
+    E_C = num_experts * C
+    pairs = (r["pair_slot"], r["pair_keep"])
+    # two groups of mesh dims: those that split the tokens (the batch
+    # axes) and those that split the expert rows (model over E, where it
+    # divides, as the reference pins them)
+    groups = (split_axes(xf, 0), rule_axes((num_experts, d), 0, MODEL_AXIS,
+                                           None))
+    lo, rows = shard_range(xf, E_C, groups[1])
+    # the pairs split as their tokens are: a rank's tokens summed into its
+    # expert rows, a partial sum over the token split
+    buf = map_shards(
+        lambda a, s, k: _scatter(a, s, k, top_k=top_k, lo=lo, rows=rows),
+        xf, *pairs, groups=groups, ins=((0, None),) * 3, outs=((SUM, 0),),
+        grads=((0, SUM), (0, None), (0, None)))
     buf = shard(buf.reshape(num_experts, C, d), "model", None, None)
 
     h = silu(torch.einsum("ecd,edf->ecf", buf, p["wi_gate"].to(x.dtype)))
@@ -121,16 +163,19 @@ def moe_layer(p: Params, x: torch.Tensor, *, num_experts: int, top_k: int,
     h = shard(h, "model", None, None)
     out_e = shard(torch.einsum("ecf,efd->ecd", h, p["wo"].to(x.dtype)),
                   "model", None, None)
-    out_flat = out_e.reshape(num_experts * C, d)
+    out_flat = out_e.reshape(E_C, d)
 
     # combine: f32 gate-weighted outputs summed in f32 and rounded once
-    # to x's dtype, as the reference's compiled scatter-add sums them
-    expert_out = shard(out_flat[slot], ("pod", "data"), None)
-    contrib = expert_out.float() * (r["sorted_gate"] * keep)[:, None]
-    combined = torch.zeros(B * T, d, dtype=contrib.dtype,
-                           device=x.device).index_add(
-        0, r["sorted_token"], replicated(contrib))   # index_add, as above
-    # pinned: the gradient comes back replicated, as ``combined`` is, and
-    # not sharded past the first dim, which torch 2.11's DTensor cannot
+    # to x's dtype, as the reference's compiled scatter-add sums them; a
+    # rank's tokens gathered from its expert rows, a partial sum over the
+    # expert split
+    combined = map_shards(
+        lambda o, s, k, g: _gather(o, s, k, g, top_k=top_k, lo=lo),
+        out_flat, *pairs, r["pair_gate"], groups=groups,
+        ins=((None, 0), (0, None), (0, None), (0, None)), outs=((0, SUM),),
+        grads=((SUM, 0), (0, None), (0, None), (0, SUM)))
+    combined = folded(settled(combined), B)
+    # pinned: the gradient comes back on the output's placements, and not
+    # sharded past the first dim, which torch 2.11's DTensor cannot
     # view-flatten
     return pinned(combined.to(x.dtype).reshape(B, T, d)), r["aux"]

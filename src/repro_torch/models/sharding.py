@@ -33,7 +33,7 @@ import weakref
 from typing import Any, Iterator, Optional, Sequence
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import implicit_replication
 
 from ..tree import tree_map_with_path
@@ -521,16 +521,116 @@ def per_shard(fn, *tensors: torch.Tensor, dims: tuple = (0, 1)):
     over its batch dims, with every other dim gathered first; plain
     tensors go to ``fn`` as they are. The result has the first tensor's
     placements on ``dims``."""
-    if not isinstance(tensors[0], DTensor):
-        return fn(*tensors)
+    return map_shards(fn, *tensors,
+                      groups=tuple(split_axes(tensors[0], d) for d in dims),
+                      ins=(dims,) * len(tensors), outs=(dims,),
+                      grads=(dims,) * len(tensors))
+
+
+SUM = "sum"
+
+
+def split_axes(x: torch.Tensor, dim: int) -> tuple:
+    """The mesh dims that split dim ``dim`` of ``x``: of ``x.device_mesh``
+    for a DTensor, none for a plain tensor."""
+    if not isinstance(x, DTensor):
+        return ()
+    return tuple(i for i, p in enumerate(x.placements)
+                 if isinstance(p, Shard) and p.dim == dim % x.ndim)
+
+
+def rule_axes(shape: Sequence[int], dim: int, *spec_axes) -> tuple:
+    """The mesh dims that the rule ``spec_axes`` puts on dim ``dim`` of a
+    tensor of ``shape`` under the mesh in force (an axis that does not
+    divide its dim dropped, as the rules drop it); none with no mesh."""
+    mesh = _MESH.get()
+    if mesh is None:
+        return ()
+    where = placements(_resolve(spec_axes, shape, axis_sizes(mesh)), mesh)
+    return tuple(i for i, p in enumerate(where) if p == Shard(dim))
+
+
+def shard_range(x: torch.Tensor, rows: int, axes: tuple) -> tuple:
+    """The [lo, lo + n) of a dim of ``rows`` that this rank holds where
+    the mesh dims ``axes`` of ``x.device_mesh`` split it, in mesh order;
+    (0, rows) for a plain ``x``."""
+    if not isinstance(x, DTensor):
+        return 0, rows
+    mesh = x.device_mesh
+    coord, index, parts = mesh.get_coordinate(), 0, 1
+    for i in axes:
+        index, parts = index * mesh.size(i) + coord[i], parts * mesh.size(i)
+    return index * (rows // parts), rows // parts
+
+
+def map_shards(fn, *args: Optional[torch.Tensor], groups: tuple,
+               ins: tuple, outs: tuple, grads: tuple):
+    """``fn`` run by each rank on its own pieces of ``args``, as the
+    reference's ``shard_map`` runs a body: for a computation that splits
+    along ``groups``, each a tuple of mesh dims (:func:`split_axes`,
+    :func:`rule_axes`). A layout gives, for each group in order, the dim
+    of the tensor that it splits, :data:`SUM` where the tensor is a
+    partial sum over its ranks, or None where they hold it whole; every
+    other mesh dim holds it whole.
+
+    Args:
+        fn: the body, on local tensors.
+        args: DTensors, redistributed to their layouts first where
+            they are not in them; plain tensors, whole on every rank,
+            each taking its piece where it is; or None, passed as it is.
+        groups: the groups of mesh dims.
+        ins: the layout of each arg.
+        outs: the layout of each of ``fn``'s results (one result, not a
+            tuple, where ``outs`` holds one layout).
+        grads: the layout of each arg's gradient.
+
+    Returns:
+        ``fn``'s results as DTensors of ``outs``; ``fn(*args)`` where no
+        arg is a DTensor.
+
+    Raises:
+        ValueError: a layout that gives one mesh dim to two groups.
+    """
+    first = next((a for a in args if isinstance(a, DTensor)), None)
+    if first is None:
+        return fn(*args)
+    from torch.distributed.tensor import distribute_tensor as dist_tensor
     from torch.distributed.tensor.experimental import local_map
-    first = tensors[0]
-    where = [p if isinstance(p, Shard) and p.dim in dims else Replicate()
-             for p in first.placements]
-    tensors = [t.redistribute(first.device_mesh, where) for t in tensors]
-    return local_map(fn, out_placements=where,
-                     in_placements=tuple(where for _ in tensors),
-                     device_mesh=first.device_mesh)(*tensors)
+    mesh = first.device_mesh
+
+    def where(layout):
+        out: list = [Replicate()] * mesh.ndim
+        for axes, entry in zip(groups, layout):
+            for i in axes if entry is not None else ():
+                if not isinstance(out[i], Replicate):
+                    raise ValueError(f"map_shards: layout {layout} puts "
+                                     f"mesh dim {i} in two groups "
+                                     f"{groups}")
+                out[i] = Partial() if entry == SUM else Shard(entry)
+        return out
+
+    def placed(a, layout):
+        if a is None:
+            return None
+        if not isinstance(a, DTensor):
+            return dist_tensor(a, mesh, where(layout), src_data_rank=None)
+        if list(a.placements) == where(layout):
+            # as it is: a redistribution, even to the same placements,
+            # would settle a partial-sum gradient here, before it meets
+            # the other gradients of ``a``
+            return a
+        return a.redistribute(mesh, where(layout))
+
+    def each(layouts):
+        return tuple(None if a is None else where(lay)
+                     for a, lay in zip(args, layouts))
+
+    args = tuple(placed(a, lay) for a, lay in zip(args, ins))
+    out = (where(outs[0]) if len(outs) == 1
+           else tuple(where(lay) for lay in outs))
+    return local_map(fn, out_placements=out, in_placements=each(ins),
+                     in_grad_placements=each(grads),
+                     device_mesh=mesh)(*args)
 
 
 def shard(x: torch.Tensor, *spec_axes) -> torch.Tensor:
@@ -666,13 +766,26 @@ def param_specs(params: Any) -> Any:
     return tree_map_with_path(spec_for, params)
 
 
+# cache leaves stacked twice (superblocks x blocks): zamba2's Mamba-2
+# blocks and the xLSTM's mLSTM blocks inside their superblocks
+_CACHE_STACKED_TWICE = re.compile(r"^(super|mlstm)/")
+
+
 def cache_specs(cache: Any) -> Any:
     """KV/state caches in the reference's stacked layout: batch dim over
     pod+data, the first trailing dim the model axis divides over model.
 
     Leaves are (L, B, H, S, D) KV rings, (L, B, H, s, d) SSM states,
-    (L, B, W, C) conv buffers, or lengths. The stacked layer dim is never
-    sharded.
+    (L, B, W, C) conv buffers, or lengths. The stacked layer dims are
+    never sharded.
+
+    The reference's, but for one fault of its rule, which the port
+    repairs: it takes one stacked dim everywhere, so on a leaf stacked
+    twice (zamba2's ``super`` and the xLSTM's ``mlstm`` caches, (S, L, B,
+    ...)) the batch axes land on the blocks dim, where they are dropped
+    unless they divide it, and ``model`` on the batch. There the port
+    right-aligns the rule: the batch axes on B, ``model`` on the first
+    trailing dim that it divides.
     """
     sizes = _mesh_axis_sizes()
     model_size = sizes.get(MODEL_AXIS, 1)
@@ -683,10 +796,11 @@ def cache_specs(cache: Any) -> Any:
         ndim = leaf.dim()
         if ndim <= 1:
             return () if ndim == 0 else _resolve([None], leaf.shape, sizes)
-        axes: list = [None, BATCH_AXES] + [None] * (ndim - 2)
+        lead = 2 if _CACHE_STACKED_TWICE.search(param_path_str(path)) else 1
+        axes: list = [None] * lead + [BATCH_AXES] + [None] * (ndim - lead - 1)
         # heads when the model axis divides them, else sequence (ring
         # decode = sequence-parallel attention), else the state dim
-        for d in range(2, ndim):
+        for d in range(lead + 1, ndim):
             if leaf.shape[d] % model_size == 0 and \
                     leaf.shape[d] >= model_size:
                 axes[d] = MODEL_AXIS

@@ -17,9 +17,13 @@ recurrence sees Dk = 1024 and Dv = 1025. Gates use sigmoid, as the reference doe
 
 sLSTM keeps per-head scalar memories with block-diagonal recurrent mixing
 (r_z, r_i, r_f, r_o), so it cannot run in parallel over time: a plain
-loop over the steps, as the reference's ``lax.scan``.
+loop over the steps, as the reference's ``lax.scan`` (:func:`_scan`, the
+four mixes one product a step, in place, with its backward through time
+written out; per shard under a mesh). Training and decode share it.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -27,7 +31,8 @@ from ..kernels import (chunked_linear_attention, linear_attention,
                        linear_attention_plain)
 from .layers import (_normal, dense, init_dense, init_rmsnorm, rmsnorm,
                      sigmoid, silu, softplus)
-from .sharding import einsum, flatten, shard, unflatten
+from .sharding import (SUM, einsum, flatten, map_shards, shard,
+                       split_axes, unflatten)
 
 Params = dict
 
@@ -169,52 +174,195 @@ def init_slstm_state(batch: int, d_model: int, num_heads: int, *,
     return {"c": z, "n": z, "h": z}
 
 
-def _slstm_step(p: Params, st: Params, zx, ix, fx, ox) -> Params:
-    """One timestep. zx/ix/fx/ox: (B, H, hd) f32 pre-activations."""
-    h_prev = st["h"]
-
-    def mix(name):
-        return torch.einsum("bhk,hkj->bhj", h_prev, p["r_" + name])
-
-    z = torch.tanh(zx + mix("z"))
-    i = sigmoid(ix + mix("i"))
-    f = sigmoid(fx + mix("f"))
-    o = sigmoid(ox + mix("o"))
-    c = f * st["c"] + i * z
-    n = f * st["n"] + i
-    return {"c": c, "n": n, "h": o * c / torch.clamp(n, min=1.0)}
+def _mixes(p: Params) -> torch.Tensor:
+    """The four recurrent mixes side by side, (H, hd, 4 hd): [z, i, f, o]."""
+    return torch.cat([p["r_" + g] for g in "zifo"], dim=-1).float()
 
 
-def _slstm_pre(p: Params, x: torch.Tensor, num_heads: int):
-    """The four f32 pre-activations of x (B, T, d): (B, T, H, hd) each,
+def _scan(pre: torch.Tensor, mixes: torch.Tensor, c0: torch.Tensor,
+          n0: torch.Tensor, h0: torch.Tensor, history: bool = True) -> tuple:
+    """The sLSTM recurrence over the T steps of ``pre`` (T, H, B, 4 hd),
+    f32 pre-activations [z, i, f, o], heads-major, from the state c0, n0,
+    h0 (H, B, hd):
+
+        a = pre_t + h_{t-1} mixes;  z = tanh(a_z);  i, f, o = sigmoid(...)
+        c_t = f c_{t-1} + i z;  n_t = f n_{t-1} + i;  h_t = o c_t / max(n_t, 1)
+
+    Every step writes into buffers made once, in place: on the meta device,
+    which the dry run traces on, an op that allocates a result runs
+    Python shape code several times as long as one that writes in place,
+    and the loop runs 4096 to 32768 steps a block. Without ``history`` (no
+    gradient to take) c and n live in two slots that the steps take in
+    turn and the gates in one, so the scan holds the h of every step and
+    no more.
+
+    Returns:
+        h at steps 0..T (T + 1, H, B, hd), the last c and n, and, with
+        ``history``, what the backward pass reads (else None): the
+        activated gates (T, H, B, 4 hd), c and n at steps 0..T (T + 1, H,
+        B, hd) and where n_t < 1 (T, H, B, hd).
+    """
+    T, hd = pre.shape[0], mixes.shape[1]
+    kept = T if history else 1
+    acts = pre.new_empty(kept, *pre.shape[1:])
+    g = pre.new_empty(pre.shape[1:])
+    cs, ns = (pre.new_empty(T + 1 if history else 2, *c0.shape)
+              for _ in range(2))
+    hs = pre.new_empty(T + 1, *c0.shape)
+    low = torch.empty(kept, *c0.shape, dtype=torch.bool, device=pre.device)
+    m, iz = torch.empty_like(c0), torch.empty_like(c0)
+    cs[0].copy_(c0)
+    ns[0].copy_(n0)
+    hs[0].copy_(h0)
+    for t in range(T):
+        s, was, now = (t, t, t + 1) if history else (0, t % 2, (t + 1) % 2)
+        torch.baddbmm(pre[t], hs[t], mixes, out=g)
+        a = acts[s]
+        torch.tanh(g[..., :hd], out=a[..., :hd])
+        torch.sigmoid(g[..., hd:], out=a[..., hd:])
+        z, i, f, o = a.split(hd, dim=-1)
+        c = cs[now].copy_(cs[was]).mul_(f).add_(iz.copy_(i).mul_(z))
+        n = ns[now].copy_(ns[was]).mul_(f).add_(i)
+        torch.lt(n, 1.0, out=low[s])
+        hs[t + 1].copy_(o).mul_(c).div_(m.copy_(n).masked_fill_(low[s], 1.0))
+    last = T if history else T % 2
+    return hs, cs[last], ns[last], (acts, cs, ns, low) if history else None
+
+
+def _scan_backward(dh_out: torch.Tensor, dc: torch.Tensor,
+                   dn: torch.Tensor, mixes: torch.Tensor, acts: torch.Tensor,
+                   cs: torch.Tensor, ns: torch.Tensor, hs: torch.Tensor,
+                   low: torch.Tensor) -> tuple:
+    """The gradients of :func:`_scan` (back through time, in place as the
+    forward runs), given those of every h_t (``dh_out``, (T, H, B, hd))
+    and of the last c and n (``dc``, ``dn``, taken over as the carries).
+
+    Returns:
+        The gradients of pre, of mixes and of c0, n0, h0.
+    """
+    T, hd = acts.shape[0], mixes.shape[1]
+    dpre, dmix = torch.empty_like(acts), torch.zeros_like(mixes)
+    dh = torch.zeros_like(dc)
+    m, gh, tmp = (torch.empty_like(dc) for _ in range(3))
+    one_minus = torch.empty_like(acts[0, ..., hd:])
+    mixes_t = mixes.transpose(1, 2)
+    for t in reversed(range(T)):
+        a, da = acts[t], dpre[t]
+        z, i, f, o = a.split(hd, dim=-1)
+        dz, di, df, do = da.split(hd, dim=-1)
+        c, n = cs[t + 1], ns[t + 1]
+        m.copy_(n).masked_fill_(low[t], 1.0)
+        gh.copy_(dh).add_(dh_out[t]).div_(m)        # dh_t / max(n_t, 1)
+        do.copy_(gh).mul_(c)
+        dc.add_(tmp.copy_(gh).mul_(o))              # dL/dc_t
+        # dL/dn_t: h_t = o c_t / max(n_t, 1), whose gradient passes where
+        # n_t >= 1 (as clamp's does)
+        dn.sub_(tmp.mul_(c).div_(m).masked_fill_(low[t], 0.0))
+        dz.copy_(dc).mul_(i)
+        di.copy_(dc).mul_(z).add_(dn)
+        df.copy_(dc).mul_(cs[t]).add_(tmp.copy_(dn).mul_(ns[t]))
+        dc.mul_(f)
+        dn.mul_(f)
+        # through tanh (1 - z^2) and the sigmoids (s (1 - s))
+        dz.mul_(tmp.copy_(z).mul_(z).mul_(-1.0).add_(1.0))
+        sig = a[..., hd:]
+        da[..., hd:].mul_(sig).mul_(one_minus.copy_(sig).mul_(-1.0)
+                                    .add_(1.0))
+        dmix.baddbmm_(hs[t].transpose(1, 2), da)
+        torch.bmm(da, mixes_t, out=dh)
+    return dpre, dmix, dc, dn, dh
+
+
+def _initial(pre: torch.Tensor, mixes: torch.Tensor, *state) -> tuple:
+    """``state`` (c0, n0, h0), each zeros (H, B, hd) where None."""
+    zeros = pre.new_zeros(pre.shape[1], pre.shape[2], mixes.shape[1])
+    return tuple(zeros if a is None else a for a in state)
+
+
+class _Recurrence(torch.autograd.Function):
+    """:func:`_scan` as a differentiable function of pre, mixes and the
+    initial state (zeros where c0, n0, h0 are None): h_1..h_T and the last
+    c and n."""
+
+    @staticmethod
+    def forward(ctx, pre, mixes, c0, n0, h0):
+        hs, c, n, (acts, cs, ns, low) = _scan(
+            pre, mixes, *_initial(pre, mixes, c0, n0, h0))
+        ctx.save_for_backward(mixes, acts, cs, ns, hs, low)
+        return hs[1:], c, n
+
+    @staticmethod
+    def backward(ctx, dh_out, dc, dn):
+        mixes, acts, cs, ns, hs, low = ctx.saved_tensors
+        grads = _scan_backward(
+            torch.zeros_like(hs[1:]) if dh_out is None
+            else dh_out.contiguous(),
+            torch.zeros_like(cs[-1]) if dc is None else dc.clone(),
+            torch.zeros_like(ns[-1]) if dn is None else dn.clone(),
+            mixes, acts, cs, ns, hs, low)
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))
+
+
+def _steps(pre: torch.Tensor, mixes: torch.Tensor, *state) -> tuple:
+    """h_1..h_T and the last c and n of the recurrence from ``state`` (c0,
+    n0, h0; zeros where None): :class:`_Recurrence` where a gradient is to
+    be taken, else :func:`_scan` without the history that only the
+    backward pass reads (prefill, decode)."""
+    if torch.is_grad_enabled() and any(
+            a is not None and a.requires_grad for a in (pre, mixes, *state)):
+        return _Recurrence.apply(pre, mixes, *state)
+    hs, c, n, _ = _scan(pre, mixes, *_initial(pre, mixes, *state),
+                        history=False)
+    return hs[1:], c, n
+
+
+def _recurrence(pre: torch.Tensor, mixes: torch.Tensor,
+                state: Optional[Params] = None) -> tuple:
+    """:func:`_steps` on pre (T, H, B, 4 hd) from ``state`` (c, n, h: (H,
+    B, hd); zeros if None). On DTensors each rank runs it on its own batch
+    rows, the rest gathered first, and the mixes' gradient is a partial
+    sum over the mesh dims that split the batch, as GSPMD partitions the
+    reference's time scan over its batch-sharded carry."""
+    init = (None,) * 3 if state is None else (state["c"], state["n"],
+                                              state["h"])
+    batch = (split_axes(pre, 2),)
+    return map_shards(_steps, pre, mixes, *init, groups=batch,
+                      ins=((2,), (None,), (1,), (1,), (1,)),
+                      outs=((2,), (1,), (1,)),
+                      grads=((2,), (SUM,), (1,), (1,), (1,)))
+
+
+def _slstm_pre(p: Params, x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The four f32 pre-activations of x (B, T, d), side by side as
+    (T, H, B, 4 hd), [z, i, f, o], heads-major for the step's product:
     over the batch axes only, as the reference pins them before its time
     loop (a model-sharded hd would cost the recurrent mix a collective
     every step)."""
     hd = x.shape[-1] // num_heads
-    return [shard(unflatten(dense(p["w_" + g], x), -1,
-                            (num_heads, hd)).float(),
-                  ("pod", "data"), None, None, None)
-            for g in "zifo"]
+    g = torch.cat([shard(unflatten(dense(p["w_" + g], x), -1,
+                                   (num_heads, hd)).float(),
+                         ("pod", "data"), None, None, None)
+                   for g in "zifo"], dim=-1)                # (B, T, H, 4hd)
+    return g.permute(1, 2, 0, 3)
 
 
 def slstm_train(p: Params, x: torch.Tensor, *,
                 num_heads: int) -> torch.Tensor:
-    """Full-sequence sLSTM, one step at a time. x: (B, T, d_model)."""
-    B, T, d_model = x.shape
-    pre = _slstm_pre(p, x, num_heads)
-    st = init_slstm_state(B, d_model, num_heads, device=x.device)
-    hs = []
-    for t in range(T):
-        st = _slstm_step(p, st, *(a[:, t] for a in pre))
-        hs.append(st["h"])
-    h = flatten(torch.stack(hs, dim=1), 2).to(x.dtype)
+    """Full-sequence sLSTM, one step at a time (:func:`_scan`). x: (B, T,
+    d_model)."""
+    hs, _, _ = _recurrence(_slstm_pre(p, x, num_heads), _mixes(p))
+    h = flatten(hs.permute(2, 0, 1, 3), 2).to(x.dtype)         # (B, T, d)
     return dense(p["down"], rmsnorm(p["norm"], h))
 
 
 def slstm_decode(p: Params, x: torch.Tensor, state: Params, *,
                  num_heads: int) -> tuple[torch.Tensor, Params]:
-    """One-token step. x: (B, 1, d_model)."""
-    st = _slstm_step(p, state, *(a[:, 0] for a in
-                                 _slstm_pre(p, x, num_heads)))
+    """One-token step. x: (B, 1, d_model); the state's c, n, h (B, H,
+    hd)."""
+    hs, c, n = _recurrence(_slstm_pre(p, x, num_heads), _mixes(p),
+                           {k: v.transpose(0, 1) for k, v in state.items()})
+    st = {k: v.transpose(0, 1) for k, v in
+          (("c", c), ("n", n), ("h", hs[0]))}
     h = flatten(st["h"], 1)[:, None].to(x.dtype)
     return dense(p["down"], rmsnorm(p["norm"], h)), st

@@ -35,7 +35,7 @@ from repro.models import cache_specs as ref_cache_specs
 from repro.models import count_params as ref_count_params
 from repro.models import param_specs as ref_param_specs
 from repro.roofline import flops as ref_flops
-from _torch_rules import intended
+from _torch_rules import intended, intended_cache
 from repro_torch.configs import ARCH_IDS, SHAPES, get_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import dryrun
@@ -72,8 +72,9 @@ def fsdp_off():
 def reference_analytic(arch, shape_name, mesh):
     """The analytic fields the reference's ``run_cell`` computes
     (``launch/dryrun.py:114-122``, ``:203-221``), on an abstract mesh of
-    the same axis sizes, its parameter specs with the one repair the port
-    makes (``_torch_rules.intended``); and its FSDP decision."""
+    the same axis sizes, its parameter and cache specs with the repairs
+    the port makes (``_torch_rules.intended``, ``intended_cache``); and
+    its FSDP decision."""
     cfg = dataclasses.replace(ref_config(arch), attn_impl="chunked",
                               mixer_impl="chunked", remat=True)
     shape = SHAPES[shape_name]
@@ -96,7 +97,7 @@ def reference_analytic(arch, shape_name, mesh):
             cache = jax.eval_shape(lambda: model.init_cache(
                 shape.global_batch, shape.seq_len))
             cache_bytes = ref_dryrun.sharded_bytes(
-                cache, ref_cache_specs(cache), fake)
+                cache, intended_cache(cache, ref_cache_specs(cache)), fake)
             state = param_bytes + cache_bytes
         else:
             state = param_bytes
@@ -230,6 +231,27 @@ def test_dryrun_cli_writes_each_cell_once(tmp_path, capsys):
     assert "[skip existing]" in capsys.readouterr().out
     with pytest.raises(SystemExit):
         dryrun.main(["--out", str(tmp_path)])
+
+
+def test_grid_runs_each_cell_in_a_child_process(tmp_path):
+    """``run_cells``, the pool under ``--all``: each cell in a child
+    process of its own that writes its record and its log under the out
+    directory; the records come back in the cells' order, and a child
+    that fails gives its exit status and log."""
+    cells = [("qwen3-0.6b", "long_500k", "single"),
+             ("no-such-arch", "train_4k", "single"),
+             ("qwen3-0.6b", "long_500k", "multi")]
+    got = dryrun.run_cells(cells, str(tmp_path))
+    assert [(r["arch"], r["mesh"], r["status"]) for r in got] == [
+        ("qwen3-0.6b", "single", "skipped"), ("no-such-arch", "single",
+                                              "exit 2"),
+        ("qwen3-0.6b", "multi", "skipped")]
+    assert "invalid choice" in open(got[1]["log"]).read()
+    for cell in cells[::2]:
+        key = dryrun.cell_key(*cell)
+        assert json.loads((tmp_path / f"{key}.json").read_text()) == \
+            got[cells.index(cell)]
+        assert (tmp_path / f"{key}.log").exists()
 
 
 def test_train_cli_dry_run_runs_the_cell():

@@ -210,6 +210,78 @@ def test_slstm_train_and_decode_match_reference_f32():
         _close(ts[key], js[key])
 
 
+def _plain_slstm(pre, mixes, c, n, h):
+    """The sLSTM's steps as the reference writes them, through autograd:
+    pre (T, H, B, 4 hd) [z, i, f, o], mixes (H, hd, 4 hd)."""
+    hd, hs = mixes.shape[1], []
+    for t in range(pre.shape[0]):
+        a = pre[t] + torch.bmm(h, mixes)
+        z = torch.tanh(a[..., :hd])
+        i, f, o = torch.sigmoid(a[..., hd:]).split(hd, dim=-1)
+        c = f * c + i * z
+        n = f * n + i
+        h = o * c / torch.clamp(n, min=1.0)
+        hs.append(h)
+    return torch.stack(hs), c, n
+
+
+def test_slstm_recurrence_backward_is_autograd_of_its_steps():
+    """The sLSTM's time scan (in place, with a backward through time
+    written out) in f64: its outputs equal the steps', its gradients of
+    pre, the mixes and the initial state are within 1e-12 of autograd's
+    through them, with normalisers on both sides of the clamp at 1, and
+    pass ``gradcheck``."""
+    rng = np.random.default_rng(12)
+    T, H, B, hd = 7, 2, 3, 4
+
+    def arr(*shape, scale=1.0, shift=0.0):
+        return torch.from_numpy(rng.standard_normal(shape) * scale
+                                + shift).requires_grad_()
+
+    args = (arr(T, H, B, 4 * hd, scale=2.0), arr(H, hd, 4 * hd, scale=0.5),
+            arr(H, B, hd), arr(H, B, hd, scale=0.6, shift=1.0),
+            arr(H, B, hd))
+    assert (args[3] < 1).any() and (args[3] > 1).any()
+    weights = [torch.from_numpy(rng.standard_normal(o.shape))
+               for o in _plain_slstm(*args)]
+    got, want = xlstm._Recurrence.apply(*args), _plain_slstm(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    grads = [torch.autograd.grad(sum((o * w).sum() for o, w in
+                                     zip(out, weights)), args)
+             for out in (got, want)]
+    for a, b in zip(*grads):
+        assert float((a - b).abs().max()) <= 1e-12
+    assert torch.autograd.gradcheck(xlstm._Recurrence.apply, args)
+
+
+@pytest.mark.parametrize("T", [6, 7])
+def test_slstm_scan_without_a_gradient_keeps_no_history(monkeypatch, T):
+    """With no gradient to take (prefill, decode) the sLSTM scan keeps c
+    and n in two slots and the gates in one: its h, c and n equal the
+    scan's that keeps what the backward pass reads, at an even and an odd
+    T, and the recurrence takes it, not :class:`_Recurrence`, under
+    ``no_grad``."""
+    rng = np.random.default_rng(13)
+    H, B, hd = 2, 3, 4
+    args = [torch.from_numpy(rng.standard_normal(shape)) for shape in
+            ((T, H, B, 4 * hd), (H, hd, 4 * hd), (H, B, hd), (H, B, hd),
+             (H, B, hd))]
+    args[3] = args[3] * 0.6 + 1.0
+    hs, c, n, saved = xlstm._scan(*args)
+    lean = xlstm._scan(*args, history=False)
+    assert saved is not None and lean[3] is None
+    assert all(torch.equal(a, b) for a, b in zip((hs, c, n), lean[:3]))
+
+    def refused(*_):
+        raise AssertionError("no gradient to take: no history")
+
+    monkeypatch.setattr(xlstm._Recurrence, "apply", refused)
+    pre, mixes = (a.clone().requires_grad_() for a in args[:2])
+    with torch.no_grad():
+        got = xlstm._recurrence(pre, mixes, dict(zip("cnh", args[2:])))
+    assert all(torch.equal(a, b) for a, b in zip(got, (hs[1:], c, n)))
+
+
 # -- each family as a whole -------------------------------------------------
 
 @functools.lru_cache(maxsize=None)

@@ -10,11 +10,14 @@ unpartitioned, on the CPU.
   the local bytes sum to the reference's, exactly. The one leaf where the
   reference's rule lands on a layer dim (zamba2's ``mamba/out_proj``,
   model over the blocks of a superblock) has d_inner over model in the
-  port, as the rule means (``_torch_rules``), at the same bytes.
+  port, as the rule means (``_torch_rules``), at the same bytes; zamba2's
+  twice-stacked ``super`` caches have the batch over pod and data and
+  the heads over model, as the cache rule means (the reference's puts
+  model on the batch), at the bytes of that rule.
 - A batch smaller than the data axis: every family's reduced config at
   B 8, T 32 on the 16 x 16 mesh traces train, prefill and decode, and the
   per-device state it places equals the reference's ``sharded_bytes``
-  (its specs with the one repair).
+  (its specs with the two repairs).
 - Numbers: on a real group of 4 gloo ranks on the CPU, (2, 2)
   ``("data", "model")``, reduced qwen3-0.6b in f32: the partitioned
   ``prefill_logits`` and one ``loss`` with its gradients equal the
@@ -32,11 +35,22 @@ unpartitioned, on the CPU.
 - The dry run: each of the three families moves collective bytes on the
   (2, 2, 2) mesh (the reference's small dry run requires it), the card's
   layout none; no process group outlives a cell, and a fake group is
-  never started over a live one.
+  never started over a live one. phi3.5-moe's experts gather no token
+  row: each rank scatter-adds its own tokens into the expert rows it
+  holds, and only those rows are all-reduced.
+- torch 2.11's DTensor has no strategy for ``aten.flip``: a partitioned
+  training step of zamba2-7b and xlstm-1.3b through the chunked forms
+  sends none to a DTensor (``cumsum``'s own backward flips; the chunked
+  forms' prefix sum does not, and its value and gradient are
+  ``cumsum``'s).
+- Twice-stacked caches (zamba2's ``super``, the xLSTM's ``mlstm``): the
+  batch over pod and data and model on the heads, so a rank of the
+  (2, 2, 2) mesh holds 1/8 of each.
 - No DTensor reaches a hand kernel: every wrapper refuses one, and so does
   a partitioned prefill on ``attn_impl="flash"``.
 """
 import dataclasses
+import inspect
 import json
 import math
 import os
@@ -49,6 +63,7 @@ import pytest
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import jax
 from jax.sharding import AbstractMesh, AxisType, PartitionSpec as P
@@ -59,15 +74,19 @@ from repro.models import build_model as ref_build
 from repro.models import cache_specs as ref_cache_specs
 from repro.models import param_specs as ref_param_specs
 from repro.roofline import collective_bytes as ref_collective_bytes
-from _torch_rules import LAYER_DIM_RULES, intended
+from _torch_rules import (CACHE_STACKED_TWICE, LAYER_DIM_RULES, intended,
+                          intended_cache)
 from repro_torch import kernels
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.base import ShapeConfig
+from repro_torch.kernels import chunked_linear_attention
+from repro_torch.kernels.linear_attention import prefix_sum
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import MeshLayout, fake_mesh, make_mesh
 from repro_torch.models import (build_model, cache_specs, param_specs,
                                 reference_layout)
 from repro_torch.models import sharding
+from repro_torch.optim import value_and_grad
 from repro_torch.roofline import TraceCounter
 from repro_torch.tree import leaves_with_path
 
@@ -86,6 +105,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from repro.configs import get_config
 from repro.launch.mesh import make_mesh
 from repro.models import build_model, cache_specs, param_specs
+from _torch_rules import intended_cache
 
 def shapes(structs, specs):
     out = {}
@@ -106,13 +126,16 @@ for arch in sys.argv[1:]:
         params = jax.eval_shape(model.init, jax.random.PRNGKey(0))
         cache = jax.eval_shape(lambda: model.init_cache(%d, %d))
         result[arch] = {"params": shapes(params, param_specs(params)),
-                        "cache": shapes(cache, cache_specs(cache))}
+                        "cache": shapes(cache, cache_specs(cache)),
+                        "cache_intended": shapes(cache, intended_cache(
+                            cache, cache_specs(cache)))}
 print("RESULT" + json.dumps(result))
 """ % (B, T)
 
 
 def _env():
-    env = dict(os.environ, PYTHONPATH=SRC)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [SRC, os.path.dirname(__file__)]))
     env.pop("XLA_FLAGS", None)
     return env
 
@@ -171,6 +194,12 @@ def test_local_shards_are_the_references(arch, reference_shards):
             local = list(leaf.to_local().shape)
             got_bytes += math.prod(local) * leaf.element_size()
             want = ref[key]
+            if kind == "cache" and CACHE_STACKED_TWICE.search(key):
+                # the reference puts model on the batch; the port splits
+                # the batch over pod and data, and model on what follows
+                assert want[lists] == whole[lists] // 2, key
+                want = reference_shards[arch]["cache_intended"][key]
+                assert want[lists] == whole[lists] // 4, key
             ref_bytes += math.prod(want) * leaf.element_size() / \
                 math.prod(whole[:lists])
             if LAYER_DIM_RULES.search(key):
@@ -243,37 +272,51 @@ def run(rank, port, ckpt, out):
 
         model_mod.embed = functools.partial(model_mod.embed,
                                             dtype=torch.float32)
-        cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(),
-                                  attn_impl="chunked")
-        model = build_model(cfg)
-        params = model.init(torch.Generator().manual_seed(0), "cpu")
-        tokens = torch.from_numpy(np.random.default_rng(0).integers(
-            0, cfg.vocab_size, (8, 32)))
-        batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
         mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
-        with torch.no_grad():
-            want_logits = model.prefill_logits(params, batch)
-        want_loss, want_grads = value_and_grad(model.loss, params, batch)
 
-        placed = sharding.place_params(params, mesh)
-        with sharding.use_mesh(mesh):
-            dbatch = {k: sharding.distribute_tensor(
-                v, mesh, sharding.batch_spec(v.shape))
-                for k, v in batch.items()}
-        with sharding.partitioned(mesh):
+        def parity(arch):
+            # the partitioned prefill, loss and gradients of reduced arch
+            # in f32 against the same unpartitioned
+            cfg = dataclasses.replace(get_config(arch).reduced(),
+                                      attn_impl="chunked",
+                                      mixer_impl="chunked")
+            model = build_model(cfg)
+            params = model.init(torch.Generator().manual_seed(0), "cpu")
+            tokens = torch.from_numpy(np.random.default_rng(0).integers(
+                0, cfg.vocab_size, (8, 32)))
+            batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
             with torch.no_grad():
-                logits = model.prefill_logits(placed, dbatch)
-            loss, grads = value_and_grad(model.loss, placed, dbatch)
-        result = {
-            "placements": [str(p) for p in logits.placements],
-            "logits": float((logits.full_tensor() - want_logits).abs().max()
-                            / want_logits.abs().max()),
-            "loss": float(abs(loss.full_tensor() - want_loss) / want_loss),
-            "grads": max(float((g.full_tensor() - w).abs().max()
-                               / w.abs().max())
-                         for g, w in zip(leaves(grads), leaves(want_grads))),
-            "dtensor_grads": all(type(g).__name__ == "DTensor"
-                                 for g in leaves(grads))}
+                want_logits = model.prefill_logits(params, batch)
+            want_loss, want_grads = value_and_grad(model.loss, params, batch)
+
+            placed = sharding.place_params(params, mesh)
+            with sharding.use_mesh(mesh):
+                dbatch = {k: sharding.distribute_tensor(
+                    v, mesh, sharding.batch_spec(v.shape))
+                    for k, v in batch.items()}
+            with sharding.partitioned(mesh):
+                with torch.no_grad():
+                    logits = model.prefill_logits(placed, dbatch)
+                loss, grads = value_and_grad(model.loss, placed, dbatch)
+            return {
+                "placements": [str(p) for p in logits.placements],
+                "logits": float((logits.full_tensor() - want_logits).abs()
+                                .max() / want_logits.abs().max()),
+                "loss": float(abs(loss.full_tensor() - want_loss)
+                              / want_loss),
+                "grads": max(float((g.full_tensor() - w).abs().max()
+                                   / w.abs().max())
+                             for g, w in zip(leaves(grads),
+                                             leaves(want_grads))),
+                "dtensor_grads": all(type(g).__name__ == "DTensor"
+                                     for g in leaves(grads))}
+
+        result = parity("qwen3-0.6b")
+        result["moe"] = parity("phi3.5-moe-42b-a6.6b")
+        result["xlstm"] = parity("xlstm-1.3b")
+        cfg = get_config("qwen3-0.6b").reduced()
+        params = build_model(cfg).init(torch.Generator().manual_seed(0),
+                                       "cpu")
 
         # pad_rows on a 1-D mesh of the 4 ranks: 12 rows in shards of 3
         # become 20 in shards of 5, rank 1's from three ranks
@@ -355,6 +398,30 @@ def four_ranks(tmp_path_factory):
 def test_partitioned_forward_and_gradients_equal_unpartitioned(four_ranks):
     for r in four_ranks:
         # last-position logits: batch over data, vocab over model
+        assert r["placements"] == ["S(0)", "S(1)"]
+        assert r["dtensor_grads"]
+        assert r["logits"] <= 1e-5 and r["loss"] <= 1e-5
+        assert r["grads"] <= 1e-5
+
+
+def test_partitioned_moe_equals_unpartitioned(four_ranks):
+    """phi3.5-moe: its experts over model, each rank scatter-adding only
+    its own tokens' rows, with the slots and capacity drops of the whole
+    batch."""
+    for r in four_ranks:
+        r = r["moe"]
+        assert r["placements"] == ["S(0)", "S(1)"]
+        assert r["dtensor_grads"]
+        assert r["logits"] <= 1e-5 and r["loss"] <= 1e-5
+        assert r["grads"] <= 1e-5
+
+
+def test_partitioned_xlstm_equals_unpartitioned(four_ranks):
+    """xlstm-1.3b on the chunked mLSTM and the sLSTM's time scan, which
+    each rank runs on its own batch rows (its recurrent mixes' gradient a
+    partial sum over the data axis)."""
+    for r in four_ranks:
+        r = r["xlstm"]
         assert r["placements"] == ["S(0)", "S(1)"]
         assert r["dtensor_grads"]
         assert r["logits"] <= 1e-5 and r["loss"] <= 1e-5
@@ -492,7 +559,8 @@ def _reference_state(arch):
     and of its B 8, T 32 decode cache, then of the cache's length counters
     (Python ints in the port), on the 16 x 16 mesh: its
     ``sharded_bytes`` arithmetic (``launch/dryrun.py``) over its specs,
-    the parameters' with the one repair (``_torch_rules.intended``)."""
+    the parameters' and the cache's with the repairs
+    (``_torch_rules.intended``, ``intended_cache``)."""
     model = ref_build(ref_config(arch).reduced())
     mesh = AbstractMesh(SQUARE.shape, SQUARE.mesh_dim_names,
                         axis_types=(AxisType.Auto,) * 2)
@@ -514,7 +582,7 @@ def _reference_state(arch):
     with jax.sharding.use_abstract_mesh(mesh):
         params = jax.eval_shape(model.init, jax.random.PRNGKey(0))
         cache = jax.eval_shape(lambda: model.init_cache(B, T))
-        c_specs = ref_cache_specs(cache)
+        c_specs = intended_cache(cache, ref_cache_specs(cache))
         return (nbytes(params, intended(params, ref_param_specs(params))),
                 nbytes(cache, c_specs), nbytes(cache, c_specs, True))
 
@@ -630,3 +698,134 @@ def test_partitioned_prefill_refuses_the_flash_kernel():
         with sharding.partitioned(mesh), torch.no_grad():
             with pytest.raises(ValueError, match="flash_attention: "):
                 model.prefill_logits(placed, {"tokens": tokens})
+
+
+class _DTensorOps(TorchDispatchMode):
+    """The names of the aten ops that reach a DTensor (the mode steps aside
+    for DTensor to run each, as ``TraceCounter`` does)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            self.ops.add(func._overloadpacket.__name__)
+            return NotImplemented
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-1.3b"])
+def test_partitioned_training_sends_no_flip_to_a_dtensor(arch):
+    """One partitioned training step (loss and backward) of reduced
+    ``arch`` on the (2, 2, 2) mesh, as the dry run takes it (chunked
+    attention and mixers, remat): torch 2.11's DTensor has no sharding
+    strategy for ``aten.flip``, which ``cumsum``'s backward runs, so none
+    may reach a DTensor, while the chunked forms' prefix sums do."""
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              attn_impl="chunked", mixer_impl="chunked",
+                              remat=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), META)
+    tokens = torch.zeros(B, T, dtype=torch.int64, device=META)
+    recorded = _DTensorOps()
+    with fake_mesh(CUBE) as mesh:
+        placed = sharding.place_params(params, mesh)
+        with sharding.use_mesh(mesh):
+            batch = {k: sharding.distribute_tensor(
+                tokens, mesh, sharding.batch_spec(tokens.shape))
+                for k in ("tokens", "labels")}
+        with sharding.partitioned(mesh), recorded:
+            value_and_grad(model.loss, placed, batch)
+    assert "cumsum" in recorded.ops
+    assert "flip" not in recorded.ops
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-1.3b"])
+def test_prefix_sum_is_cumsum_in_value_and_gradient(arch):
+    """At the chunk both mixers' chunked form takes (the default of
+    ``chunked_linear_attention``), over log decays of the arch's head
+    count: the value is ``cumsum``'s bit for bit, the f64 gradient within
+    1e-12 of ``cumsum``'s."""
+    chunk = inspect.signature(
+        chunked_linear_attention).parameters["chunk"].default
+    heads = get_config(arch).num_heads
+    rng = np.random.default_rng(5)
+    ld = torch.from_numpy(-rng.exponential(0.5, (heads, chunk)))
+    g = torch.from_numpy(rng.standard_normal((heads, chunk)))
+    x = ld.clone().requires_grad_()
+    want = torch.cumsum(x, dim=-1)
+    (want_grad,) = torch.autograd.grad(want, x, g)
+    y = ld.clone().requires_grad_()
+    got = prefix_sum(y)
+    (got_grad,) = torch.autograd.grad(got, y, g)
+    assert got.dtype == torch.float64
+    assert torch.equal(got, want)
+    assert float((got_grad - want_grad).abs().max()) <= 1e-12
+
+
+def test_moe_gathers_no_token_rows(small_cells):
+    """Reduced phi3.5-moe train_4k on the (2, 2, 2) mesh: each rank
+    scatter-adds the (token, k) pairs of its own tokens into the expert
+    rows it holds, a partial sum over the batch axes all-reduced, so no
+    token row is gathered on the way into or out of the experts: the
+    all-gathers booked to ``moe_layer`` come to less than the (N * k, d)
+    token rows a layer and microbatch (a quarter of their bytes here: a
+    rank's tokens' features gathered over model, as the reference pins
+    them, and the route's indices over all N tokens). The cell's all-gathers
+    come to at most GSPMD's 1,425,408 B on the same layout
+    (``scripts/torch_partition_table.py``), where gathering the rows took
+    4,327,424, and the all-reduce of the expert rows is of this rank's
+    experts' rows alone."""
+    arch = "phi3.5-moe-42b-a6.6b"
+    got = dryrun.run_cell(arch, "train_4k", "multi", verbose=False)
+    by_op = {(kind, op): nbytes for kind, op, nbytes in got["coll_by_op"]}
+    cfg = get_config(arch).reduced()
+    accum = dryrun.GRAD_ACCUM[(arch, "train_4k")]
+    tokens = B // accum * T
+    gathered = sum(nbytes for (kind, op), nbytes in by_op.items()
+                   if kind == "all-gather" and "moe_layer" in op)
+    assert gathered / (cfg.num_layers * accum) < \
+        tokens * cfg.top_k * cfg.d_model * 2
+    assert got["coll_breakdown"]["all-gather"] <= 1_425_408
+    capacity = int(cfg.capacity_factor * tokens * cfg.top_k
+                   / cfg.num_experts)
+    rows = cfg.num_experts // CUBE.shape[-1] * capacity * cfg.d_model * 2
+    assert by_op[("all-reduce", "block moe_layer shard")] == \
+        cfg.num_layers * accum * rows                       # bf16 rows
+
+
+@pytest.mark.parametrize("arch,key", [("zamba2-7b", "super"),
+                                      ("xlstm-1.3b", "mlstm")])
+def test_twice_stacked_caches_split_batch_and_heads(arch, key):
+    """B 8 on the (2, 2, 2) mesh: each (B, H, ...) state of a block inside
+    a superblock has the batch over pod and data and the heads (or the
+    conv buffer's channels) over model, so a rank holds 1/8 of it, where
+    the reference's rule (model on the batch) holds 1/2."""
+    model = build_model(get_config(arch).reduced())
+    cache = model.init_cache(B, T, device=META)
+    with fake_mesh(CUBE) as mesh:
+        placed = sharding.place_cache(cache, mesh)
+    states = leaves_with_path(placed[key])
+    assert states
+    for path, leaf in states:
+        assert leaf.to_local().shape[0] == B // 4, path
+        assert leaf.to_local().numel() * 8 == leaf.numel(), path
+
+
+def test_decode_cell_records_its_placed_cache_by_leaf(small_cells):
+    """Reduced zamba2-7b decode on the (2, 2, 2) mesh: the cell's record
+    holds each cache leaf's bytes, in all and on rank 0, as ``place_cache``
+    put them there: 1/8 of each, the superblocks' Mamba-2 states
+    included (the length counters are Python ints, no leaf)."""
+    got = dryrun.run_cell("zamba2-7b", "decode_32k", "multi", verbose=False)
+    cache = build_model(get_config("zamba2-7b").reduced()).init_cache(
+        B, T, device=META)
+    by_leaf = got["cache_bytes_by_leaf"]
+    assert set(by_leaf) == {"/".join(str(k) for k in path
+                                     if not isinstance(k, int))
+                            for path, leaf in leaves_with_path(cache)
+                            if isinstance(leaf, torch.Tensor)}
+    assert "super/state" in by_leaf
+    for whole, dev in by_leaf.values():
+        assert whole == 8 * dev > 0

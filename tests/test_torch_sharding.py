@@ -8,10 +8,11 @@ The reference's specs are evaluated in this process on abstract meshes
 config and three full ones (shapes only): every leaf's path, shape, dtype
 and spec, entry for entry, and the per-device bytes they give, must be
 equal, for parameters and for decode caches. Exact equality throughout:
-the rules are the same code on the same shapes, but for the one fault of
+the rules are the same code on the same shapes, but for the two faults of
 the reference's rules that the port repairs (``_torch_rules``: out_proj's
-and down's rule right-aligned on twice-stacked superblocks), where the
-port is held to the rule as the reference's ``_resolve`` gives it.
+and down's rule, and the cache rule, right-aligned on twice-stacked
+superblocks), where the port is held to the rule as the reference's
+``_resolve`` gives it.
 """
 import os
 import types
@@ -29,7 +30,7 @@ from repro.models import build_model as ref_build
 from repro.models import cache_specs as ref_cache_specs
 from repro.models import count_params as ref_count_params
 from repro.models import param_specs as ref_param_specs
-from _torch_rules import intended
+from _torch_rules import intended, intended_cache
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.launch.dryrun import sharded_bytes
 from repro_torch.launch.mesh import MeshLayout, make_production_mesh
@@ -122,7 +123,8 @@ def test_specs_and_bytes_equal_the_reference(arch, reduced, mesh_shape, axes,
         ref_params = jax.eval_shape(ref_model.init, jax.random.PRNGKey(0))
         ref_p_specs = intended(ref_params, ref_param_specs(ref_params))
         ref_cache = jax.eval_shape(lambda: ref_model.init_cache(B, S))
-        ref_c_specs = ref_cache_specs(ref_cache)
+        ref_c_specs = intended_cache(ref_cache,
+                                     ref_cache_specs(ref_cache))
     layout = MeshLayout(axes, mesh_shape)
     params = model.init(torch.Generator().manual_seed(0), META)
     p_struct = reference_layout(params)
