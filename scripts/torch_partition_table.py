@@ -3,7 +3,7 @@
 
     PYTHONPATH=src python3 scripts/torch_partition_table.py
 
-For reduced qwen3-0.6b, phi3.5-moe and zamba2-7b on the (2, 2, 2)
+For reduced qwen3-0.6b, phi3.5-moe, zamba2-7b and xlstm-1.3b on the (2, 2, 2)
 ``("pod", "data", "model")`` mesh of the reference's small dry run
 (``tests/test_dryrun_small.py``: B 8, T 32), a train step and a decode
 step each:
@@ -16,9 +16,10 @@ step each:
 - the reference: the step lowered and compiled by GSPMD for 8 forced host
   devices (in a subprocess, so its XLA_FLAGS do not reach this process),
   its parameter and cache specs with the two repairs the port makes
-  (``tests/_torch_rules.py``: zamba2's out_proj, d_inner over model; its
-  twice-stacked ``super`` caches, the batch over pod and data and model
-  on what follows), so both place the same layout,
+  (``tests/_torch_rules.py``: zamba2's out_proj and the xLSTM's down,
+  d_inner over model; their twice-stacked ``super`` and ``mlstm``
+  caches, the batch over pod and data and model on what follows), so
+  both place the same layout,
   ``collective_bytes`` of the compiled HLO and ``memory_analysis``'s
   argument + temp + output bytes, as its ``run_cell`` reads them, and the
   same bytes split by the op that issued each collective: the two
@@ -38,7 +39,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FAMILIES = ["qwen3-0.6b", "phi3.5-moe-42b-a6.6b", "zamba2-7b"]
+FAMILIES = ["qwen3-0.6b", "phi3.5-moe-42b-a6.6b", "zamba2-7b", "xlstm-1.3b"]
 B, T = 8, 32
 
 REFERENCE = r"""

@@ -58,6 +58,8 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _loaded: dict[str, object] = {}     # guarded-by: _lock
+_graph_lock = threading.Lock()
+_graphs: dict = {}                  # guarded-by: _graph_lock
 
 
 def nvcc_path() -> str:
@@ -236,3 +238,38 @@ def refuse_grad(name: str, plain: str, *tensors: torch.Tensor) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise ValueError(f"{name}: the hand kernel has no backward; take "
                          f"gradients through its plain version ({plain})")
+
+
+def run_plain(body, *args):
+    """Run a plain version's body: one TorchScript call on CPU tensors,
+    op by op on any other device.
+
+    Written in Python, a plain version dispatches one torch op a step.
+    Each op gives up the interpreter lock while it computes and must take
+    it back before the next. Beside another thread that runs Python, as
+    the CUDA unit's worker does in a co-execution pair, each of those
+    takes waits, so the CPU unit's package ran many times slower than
+    alone. The scripted body runs all its ops in one call with the lock
+    released. It runs on TorchScript's simple executor (no profiling run,
+    no optimisation pass, no fusion: the switch is per thread), so its
+    ops and their order are the eager body's, and so are its results,
+    bit for bit. The body is scripted once, at its first CPU call.
+
+    Args:
+        body: a TorchScript-compatible function of ``args``.
+        args: its arguments; the first is a tensor.
+
+    Returns:
+        What ``body`` returns.
+    """
+    if type(args[0]) is not torch.Tensor or args[0].device.type != "cpu":
+        return body(*args)
+    with _graph_lock:
+        graph = _graphs.get(body)
+        if graph is None:
+            # TorchScript is deprecated in favour of torch.compile, which
+            # would need a C++ toolchain at run time and compile once per
+            # package shape
+            graph = _graphs[body] = torch.jit.script(body)
+    with torch.jit.optimized_execution(False):
+        return graph(*args)

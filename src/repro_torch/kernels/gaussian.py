@@ -14,7 +14,7 @@ exist, so no zero-filled copy is made.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -37,23 +37,36 @@ def _out_rows(img: torch.Tensor, lo_pad: int, hi_pad: int) -> int:
     return rows
 
 
-def _taps5(a, b, c, d, e, out=None):
-    t = GAUSS_TAPS
+def _taps5(t: List[float], a: torch.Tensor, b: torch.Tensor,
+           c: torch.Tensor, d: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
     s = t[0] * a + t[1] * b + t[2] * c + t[3] * d
-    return torch.add(s, t[4] * e, out=out)
+    return torch.add(s, t[4] * e)
+
+
+def _blur_body(img: torch.Tensor, taps: List[float], lo_pad: int,
+               hi_pad: int, rows: int,
+               out: Optional[torch.Tensor]) -> torch.Tensor:
+    W = img.shape[1]
+    p = F.pad(img, [0, 0, lo_pad, hi_pad])
+    vert = _taps5(taps, p[0:rows], p[1:1 + rows], p[2:2 + rows], p[3:3 + rows],
+                  p[4:4 + rows])
+    h = F.pad(vert, [2, 2])
+    blurred = _taps5(taps, h[:, 0:W], h[:, 1:1 + W], h[:, 2:2 + W],
+                     h[:, 3:3 + W], h[:, 4:4 + W])
+    if out is None:
+        return blurred
+    return out.copy_(blurred)
 
 
 def gaussian_blur_halo_plain(img: torch.Tensor, *, lo_pad: int = 0,
                              hi_pad: int = 0,
                              out: Optional[torch.Tensor] = None
                              ) -> torch.Tensor:
-    """The halo blur in plain PyTorch (any device), the kernel's order."""
+    """The halo blur in plain PyTorch (any device; one TorchScript call on
+    the CPU, :func:`_lib.run_plain`), the kernel's order."""
     rows = _out_rows(img, lo_pad, hi_pad)
-    W = img.shape[1]
-    padded = F.pad(img, (0, 0, lo_pad, hi_pad))
-    vert = _taps5(*(padded[d:d + rows] for d in range(5)))
-    hp = F.pad(vert, (2, 2))
-    return _taps5(*(hp[:, d:d + W] for d in range(5)), out=out)
+    return _lib.run_plain(_blur_body, img, list(GAUSS_TAPS), int(lo_pad),
+                          int(hi_pad), rows, out)
 
 
 def gaussian_blur_halo(img: torch.Tensor, *, lo_pad: int = 0,

@@ -24,15 +24,8 @@ def _check(cre: torch.Tensor, cim: torch.Tensor,
                          f"{tuple(cre.shape)}")
 
 
-def mandelbrot_plain(cre: torch.Tensor, cim: torch.Tensor, *,
-                     max_iter: int = 64,
-                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Escape iterations in plain PyTorch (any device).
-
-    |z|^2 <= 4 is tested before each update and escaped points stay
-    frozen, as in the reference.
-    """
-    _check(cre, cim, out)
+def _mandelbrot_body(cre: torch.Tensor, cim: torch.Tensor, max_iter: int,
+                     out: Optional[torch.Tensor]) -> torch.Tensor:
     zr = torch.zeros_like(cre)
     zi = torch.zeros_like(cim)
     it = torch.zeros_like(cre)
@@ -46,6 +39,19 @@ def mandelbrot_plain(cre: torch.Tensor, cim: torch.Tensor, *,
     if out is None:
         return it
     return out.copy_(it)
+
+
+def mandelbrot_plain(cre: torch.Tensor, cim: torch.Tensor, *,
+                     max_iter: int = 64,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Escape iterations in plain PyTorch (any device; one TorchScript
+    call on the CPU, :func:`_lib.run_plain`).
+
+    |z|^2 <= 4 is tested before each update and escaped points stay
+    frozen, as in the reference.
+    """
+    _check(cre, cim, out)
+    return _lib.run_plain(_mandelbrot_body, cre, cim, int(max_iter), out)
 
 
 def mandelbrot(cre: torch.Tensor, cim: torch.Tensor, *, max_iter: int = 64,

@@ -32,15 +32,24 @@ def _check(values: torch.Tensor, lengths: torch.Tensor,
                          f"{(values.shape[0],)}")
 
 
-def rap_plain(values: torch.Tensor, lengths: torch.Tensor, *,
-              out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Masked row sums in plain PyTorch (any device), the reference's way:
-    every column's utility, masked by ``column < length``, then summed."""
-    _check(values, lengths, out)
+def _rap_body(values: torch.Tensor, lengths: torch.Tensor,
+              out: Optional[torch.Tensor]) -> torch.Tensor:
     col = torch.arange(values.shape[1], device=values.device)
     mask = col[None, :] < lengths[:, None]
     util = torch.log1p(torch.clamp_min(values, 0.0))
-    return torch.sum(torch.where(mask, util, 0.0), dim=1, out=out)
+    rows = torch.sum(torch.where(mask, util, 0.0), dim=1)
+    if out is None:
+        return rows
+    return out.copy_(rows)
+
+
+def rap_plain(values: torch.Tensor, lengths: torch.Tensor, *,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Masked row sums in plain PyTorch (any device; one TorchScript call
+    on the CPU, :func:`_lib.run_plain`), the reference's way: every
+    column's utility, masked by ``column < length``, then summed."""
+    _check(values, lengths, out)
+    return _lib.run_plain(_rap_body, values, lengths, out)
 
 
 def rap(values: torch.Tensor, lengths: torch.Tensor, *,

@@ -13,7 +13,7 @@ drawn with the same numpy generator calls.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -56,32 +56,19 @@ def _check(dx: torch.Tensor, dy: torch.Tensor, dz: torch.Tensor,
                          f"{tuple(dx.shape)}")
 
 
-def raytrace_plain(dx: torch.Tensor, dy: torch.Tensor, dz: torch.Tensor,
-                   spheres: torch.Tensor, *,
-                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Nearest-hit shading in plain PyTorch (any device), reference order.
-
-    Every operation rounds as IEEE f32 does, on any device, so the result
-    equals the kernel's bit for bit. Two choices keep it so. Every constant
-    is an f32 tensor on the rays' device: CUDA PyTorch turns division by a
-    Python scalar into a multiplication by its reciprocal. The square root
-    is taken in f64 and rounded to f32: PyTorch's vectorised f32 square
-    root on the CPU is not correctly rounded, and an f64 root within an
-    f64 ulp of the exact one rounds to the correctly rounded f32 root
-    (the exact root of an f32 number never lies that close to a rounding
-    midpoint).
-    """
-    _check(dx, dy, dz, spheres, out)
-
-    def const(v: float) -> torch.Tensor:
-        return torch.tensor(v, dtype=dx.dtype, device=dx.device)
-
-    zero, one = const(0.0), const(1.0)
-    light, eps, rmin = const(LIGHT), const(HIT_EPS), const(MIN_RADIUS)
+def _raytrace_body(dx: torch.Tensor, dy: torch.Tensor, dz: torch.Tensor,
+                   spheres: torch.Tensor, consts: List[float],
+                   out: Optional[torch.Tensor]) -> torch.Tensor:
+    zero = torch.tensor(0.0, dtype=dx.dtype, device=dx.device)
+    one = torch.tensor(1.0, dtype=dx.dtype, device=dx.device)
+    light = torch.tensor(consts[0], dtype=dx.dtype, device=dx.device)
+    eps = torch.tensor(consts[1], dtype=dx.dtype, device=dx.device)
+    rmin = torch.tensor(consts[2], dtype=dx.dtype, device=dx.device)
     best_t = torch.full_like(dx, float("inf"))
     shade = torch.zeros_like(dx)
     for row in spheres.to(device=dx.device, dtype=dx.dtype):
-        cx, cy, cz, r, alb = row.unbind()
+        col = row.unbind()
+        cx, cy, cz, r, alb = col[0], col[1], col[2], col[3], col[4]
         # |t d - c|^2 = r^2 for unit d: t^2 - 2 t (d.c) + |c|^2 - r^2 = 0
         b = dx * cx + dy * cy + dz * cz
         c = cx * cx + cy * cy + cz * cz - r * r
@@ -99,6 +86,27 @@ def raytrace_plain(dx: torch.Tensor, dy: torch.Tensor, dz: torch.Tensor,
     if out is None:
         return shade
     return out.copy_(shade)
+
+
+def raytrace_plain(dx: torch.Tensor, dy: torch.Tensor, dz: torch.Tensor,
+                   spheres: torch.Tensor, *,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Nearest-hit shading in plain PyTorch (any device; one TorchScript
+    call on the CPU, :func:`_lib.run_plain`), reference order.
+
+    Every operation rounds as IEEE f32 does, on any device, so the result
+    equals the kernel's bit for bit. Two choices keep it so. Every constant
+    is an f32 tensor on the rays' device: CUDA PyTorch turns division by a
+    Python scalar into a multiplication by its reciprocal. The square root
+    is taken in f64 and rounded to f32: PyTorch's vectorised f32 square
+    root on the CPU is not correctly rounded, and an f64 root within an
+    f64 ulp of the exact one rounds to the correctly rounded f32 root
+    (the exact root of an f32 number never lies that close to a rounding
+    midpoint).
+    """
+    _check(dx, dy, dz, spheres, out)
+    return _lib.run_plain(_raytrace_body, dx, dy, dz, spheres,
+                          [LIGHT, HIT_EPS, MIN_RADIUS], out)
 
 
 def raytrace(dx: torch.Tensor, dy: torch.Tensor, dz: torch.Tensor,

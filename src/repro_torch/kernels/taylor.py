@@ -13,15 +13,8 @@ import torch
 from . import _lib
 
 
-def taylor_sin_plain(x: torch.Tensor, *, terms: int = 12,
-                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """sin(x) from ``terms`` Taylor terms in plain PyTorch (any device).
-
-    term <- -term * x^2 / ((2k+2)(2k+3)), in the kernel's operation order.
-    The divisor is a tensor on x's device: CUDA turns division by a Python
-    scalar into a multiplication by its reciprocal, which is not the
-    kernel's IEEE division.
-    """
+def _taylor_body(x: torch.Tensor, terms: int,
+                 out: Optional[torch.Tensor]) -> torch.Tensor:
     x2 = x * x
     acc = torch.zeros_like(x)
     term = x
@@ -33,6 +26,19 @@ def taylor_sin_plain(x: torch.Tensor, *, terms: int = 12,
     if out is None:
         return acc
     return out.copy_(acc)
+
+
+def taylor_sin_plain(x: torch.Tensor, *, terms: int = 12,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """sin(x) from ``terms`` Taylor terms in plain PyTorch (any device;
+    one TorchScript call on the CPU, :func:`_lib.run_plain`).
+
+    term <- -term * x^2 / ((2k+2)(2k+3)), in the kernel's operation order.
+    The divisor is a tensor on x's device: CUDA turns division by a Python
+    scalar into a multiplication by its reciprocal, which is not the
+    kernel's IEEE division.
+    """
+    return _lib.run_plain(_taylor_body, x, int(terms), out)
 
 
 def taylor_sin(x: torch.Tensor, *, terms: int = 12,

@@ -478,8 +478,11 @@ def _build_xlstm(cfg: ModelConfig) -> Model:
 
     def decode_step(params, tokens, cache):
         """tokens (B, 1) -> logits (B, padded vocab), the padded columns
-        -inf, and the advanced cache."""
-        x = embed(params["embed"], tokens)
+        -inf, and the advanced cache. The residual stream's rows stay over
+        the batch axes only and its features over model, where the mLSTM
+        steps' kernels split their contraction dim."""
+        x = shard(embed(params["embed"], tokens), ("pod", "data"), None,
+                  "model")
         ms, ss = [], []
         for sb, mc, sc in zip(params["superblocks"], cache["mlstm"],
                               cache["slstm"]):
@@ -494,7 +497,7 @@ def _build_xlstm(cfg: ModelConfig) -> Model:
             h, sc = xlstm_mod.slstm_decode(
                 s["slstm"], rmsnorm(s["ln"], x, cfg.norm_eps), sc,
                 num_heads=H)
-            x = x + h
+            x = shard(x + h, ("pod", "data"), None, "model")
             ms.append(new)
             ss.append(sc)
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -610,8 +613,11 @@ def _build_zamba(cfg: ModelConfig) -> Model:
 
     def decode_step(params, tokens, cache):
         """tokens (B, 1) -> logits (B, padded vocab), the padded columns
-        -inf, and the advanced cache."""
-        x = embed(params["embed"], tokens)
+        -inf, and the advanced cache. The residual stream's rows stay over
+        the batch axes only and its features over model, where the Mamba-2
+        steps' kernels split their contraction dim."""
+        x = shard(embed(params["embed"], tokens), ("pod", "data"), None,
+                  "model")
 
         def mamba_steps(x, blocks, caches):
             new = []
@@ -636,6 +642,7 @@ def _build_zamba(cfg: ModelConfig) -> Model:
             x = x + h
             x = x + mlp(shared["mlp"], rmsnorm(shared["ln2"], x,
                                                 cfg.norm_eps))
+            x = shard(x, ("pod", "data"), None, "model")
             supers.append(mc)
             attns.append(ac)
         x, tail = mamba_steps(x, params["tail_blocks"], cache["tail"])

@@ -371,23 +371,51 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return folded(y, lead[0]).view(*lead, y.shape[-1])
 
 
-def einsum(equation: str, *operands: torch.Tensor,
-           batch: int) -> torch.Tensor:
-    """``torch.einsum(equation, *operands)`` where the first ``batch``
-    letters of every operand and of the result are the same batch dims.
-    On DTensors those dims are folded into one here (:func:`flatten`) and
-    kept unfoldable (:func:`folded`) around the einsum, which DTensor
-    would otherwise fold itself and might shard unevenly; plain tensors go
-    to ``torch.einsum`` as they are."""
-    if not any(isinstance(t, DTensor) for t in operands):
-        return torch.einsum(equation, *operands)
-    lead = tuple(operands[0].shape[:batch])
-    inputs, output = equation.replace(" ", "").split("->")
-    fold = ",".join("Z" + term[batch:] for term in inputs.split(","))
-    y = torch.einsum(f"{fold}->Z{output[batch:]}",
-                     *(folded(flatten(t, 0, batch - 1), lead[0])
-                       for t in operands))
-    return unflatten(folded(y, lead[0]), 0, lead)
+def whole(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with its last dim whole on every rank: gathered where a mesh
+    dim splits it, its partial sums added up (all-reduced); its other dims
+    stay split where they are. A plain tensor as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    return _replicate_where(x, lambda p: p.is_partial() or (
+        isinstance(p, Shard) and p.dim == x.ndim - 1))
+
+
+def like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``x`` placed as ``ref`` is, a tensor of as many dims: a partial sum
+    reduce-scattered onto a dim that ``ref`` splits, or all-reduced where
+    ``ref`` is whole. A plain ``x`` or ``ref`` leaves ``x`` as it is."""
+    if not isinstance(x, DTensor) or not isinstance(ref, DTensor) or \
+            list(x.placements) == list(ref.placements):
+        return x
+    return x.redistribute(x.device_mesh, ref.placements)
+
+
+def cache_step(fn, cache: torch.Tensor, names: str,
+               *args: torch.Tensor, ins: Sequence[str],
+               outs: Sequence[str]):
+    """``fn(*args)`` for a decode step that advances ``cache``, a cache
+    leaf as :func:`cache_specs` placed it, run by each rank on its own
+    pieces (:func:`map_shards`) where the leaf lies, so that the advanced
+    leaf is formed on the leaf's placements and no state moves.
+
+    ``names`` names the leaf's dims, one letter each (``"bhsd"``);
+    ``ins`` and ``outs`` name the dims of each arg and each of ``fn``'s
+    results by the same letters (any other letter for a dim the leaf
+    lacks). A mesh dim that splits a dim of the leaf splits every arg's
+    and result's dim of its letter; an arg without that letter is whole on
+    those ranks, and a result without it is a partial sum over them (the
+    letter was contracted away). With a plain ``cache``, ``fn(*args)``."""
+    groups = tuple(split_axes(cache, d) for d in range(cache.ndim))
+
+    def layout(dims: str, absent) -> tuple:
+        return tuple(dims.index(c) if c in dims else (absent if g else None)
+                     for c, g in zip(names, groups))
+
+    return map_shards(fn, *args, groups=groups,
+                      ins=tuple(layout(t, None) for t in ins),
+                      outs=tuple(layout(t, SUM) for t in outs),
+                      grads=tuple(layout(t, SUM) for t in ins))
 
 
 def arange_like(x: torch.Tensor, dim: int = -1) -> torch.Tensor:

@@ -22,7 +22,8 @@ from ..kernels import (chunked_linear_attention, linear_attention,
                        linear_attention_plain)
 from .layers import (_normal, dense, init_dense, init_rmsnorm, rmsnorm,
                      silu, softplus)
-from .sharding import flatten, shard, unflatten
+from .sharding import (cache_step, flatten, like, settled, shard,
+                       unflatten, whole)
 
 Params = dict
 
@@ -138,10 +139,44 @@ def init_mamba2_cache(batch: int, d_model: int, d_state: int,
     }
 
 
+def _conv_step(conv: torch.Tensor, xbc: torch.Tensor, w: torch.Tensor,
+               b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The depthwise conv over the rolling buffer ``conv`` (B, W-1, C) and
+    the new column ``xbc`` (B, 1, C), in ``xbc``'s dtype: the conv's output
+    (B, C) and the advanced buffer."""
+    hist = torch.cat([conv.to(xbc.dtype), xbc], dim=1)
+    out = hist[:, 0, :] * w[0].to(xbc.dtype)
+    for i in range(1, CONV_WIDTH):
+        out = out + hist[:, i, :] * w[i].to(xbc.dtype)
+    return out + b.to(xbc.dtype), hist[:, 1:, :].to(conv.dtype)
+
+
+def _ssm_step(S: torch.Tensor, dt: torch.Tensor, dt_bias: torch.Tensor,
+              A_log: torch.Tensor, Bv: torch.Tensor, Cv: torch.Tensor,
+              xh: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """S <- decay S + (dt B)^T x, with dt = softplus(dt + dt_bias) and
+    decay = exp(-dt exp(A_log)), and its read-out C . S: the state (B, H,
+    s, d), y (B, H, d)."""
+    dt = softplus(dt.float() + dt_bias)                         # (B,H)
+    decay = torch.exp(-dt * torch.exp(A_log))
+    S = S * decay[..., None, None]
+    S = S + (dt[..., None] * Bv[:, None, :])[..., None] * xh[:, :, None, :]
+    return S, torch.einsum("bs,bhsd->bhd", Cv, S)
+
+
 def mamba2_decode(p: Params, x: torch.Tensor, cache: Params, *,
                   d_state: int, head_dim: int = 64, expand: int = 2
                   ) -> tuple[torch.Tensor, Params]:
-    """One-token step. x: (B, 1, d_model)."""
+    """One-token step. x: (B, 1, d_model). Partitioned, with x's rows
+    over the batch axes and its features over model (as zamba2's decode
+    places the residual stream), it runs where its weights and its cache
+    lie: x's features meet the projections' model-split contraction dim,
+    each partial product is reduce-scattered onto the placements of what
+    reads it (the conv buffer's channels, the state's heads, the gate's
+    features: :func:`sharding.like`), and the conv buffer and the state
+    advance on their own placements (:func:`sharding.cache_step`), so
+    neither a kernel nor a cache leaf moves; the output comes back placed
+    as ``x`` is."""
     Bsz, _, d_model = x.shape
     d_inner = expand * d_model
     heads = d_inner // head_dim
@@ -151,30 +186,20 @@ def mamba2_decode(p: Params, x: torch.Tensor, cache: Params, *,
     xbc = torch.cat([xc, Bmat, Cmat], dim=-1)
 
     # rolling conv buffer, read back in the activations' dtype
-    hist = torch.cat([cache["conv"].to(xbc.dtype), xbc], dim=1)
-    w = p["conv_w"]
-    conv = hist[:, 0, :] * w[0].to(xbc.dtype)
-    for i in range(1, CONV_WIDTH):
-        conv = conv + hist[:, i, :] * w[i].to(xbc.dtype)
-    conv = conv + p["conv_b"].to(xbc.dtype)
-    xc1 = silu(conv)[:, None, :]
-    new_conv = hist[:, 1:, :].to(cache["conv"].dtype)
+    conv, new_conv = cache_step(
+        _conv_step, cache["conv"], "bwc", cache["conv"], xbc, p["conv_w"],
+        p["conv_b"], ins=("bwc", "b_c", "_c", "c"), outs=("bc", "bwc"))
+    xc1 = silu(whole(conv))[:, None, :]
 
     xs, Bm, Cm = torch.split(xc1, [d_inner, d_state, d_state], dim=-1)
-    dt = softplus(dt.float() + p["dt_bias"])                   # (B,1,H)
-    A = torch.exp(p["A_log"])
-    decay = torch.exp(-dt * A)[:, 0, :]                          # (B,H)
-
     xh = unflatten(xs[:, 0], -1, (heads, head_dim)).float()
-    Bv = Bm[:, 0, :].float()                                     # (B,S)
-    Cv = Cm[:, 0, :].float()
-    dtv = dt[:, 0, :]                                            # (B,H)
-
-    # S <- decay S + (dt B)^T x
-    S = cache["state"] * decay[..., None, None]
-    S = S + (dtv[..., None] * Bv[:, None, :])[..., None] * xh[:, :, None, :]
-    y = torch.einsum("bs,bhsd->bhd", Cv, S)
-    y = y + p["D"][None, :, None] * xh
+    S, y = cache_step(
+        _ssm_step, cache["state"], "bhsd", cache["state"], dt[:, 0, :],
+        p["dt_bias"], p["A_log"], Bm[:, 0, :].float(), Cm[:, 0, :].float(),
+        xh, ins=("bhsd", "bh", "h", "h", "bs", "bs", "bhd"),
+        outs=("bhsd", "bhd"))
+    y = settled(y) + p["D"][None, :, None] * xh
     y = flatten(y, 1)[:, None].to(x.dtype)
-    y = rmsnorm(p["norm"], y) * silu(z)
-    return dense(p["out_proj"], y), {"state": S, "conv": new_conv}
+    y = rmsnorm(p["norm"], y) * silu(like(z, y))
+    return like(dense(p["out_proj"], y), x), \
+        {"state": S, "conv": new_conv}

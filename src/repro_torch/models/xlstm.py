@@ -31,8 +31,8 @@ from ..kernels import (chunked_linear_attention, linear_attention,
                        linear_attention_plain)
 from .layers import (_normal, dense, init_dense, init_rmsnorm, rmsnorm,
                      sigmoid, silu, softplus)
-from .sharding import (SUM, einsum, flatten, map_shards, shard,
-                       split_axes, unflatten)
+from .sharding import (SUM, cache_step, flatten, like, map_shards,
+                       settled, shard, split_axes, unflatten, whole)
 
 Params = dict
 
@@ -118,33 +118,58 @@ def init_mlstm_cache(batch: int, d_model: int, num_heads: int,
             "n": torch.zeros(batch, num_heads, hd, device=device)}
 
 
+def _mlstm_step(C: torch.Tensor, n: torch.Tensor, q: torch.Tensor,
+                k: torch.Tensor, v: torch.Tensor, i_g: torch.Tensor,
+                f_g: torch.Tensor) -> tuple:
+    """C <- f C + i k^T v, n <- f n + i k, and their read-outs q C and
+    q . n: the memory (B, H, k, v), the normaliser (B, H, k), the
+    numerator (B, H, v) and the denominator (B, H)."""
+    C = C * f_g[..., None, None] + \
+        (i_g[..., None] * k)[..., :, None] * v[..., None, :]
+    n = n * f_g[..., None] + i_g[..., None] * k
+    return (C, n, torch.einsum("bhk,bhkv->bhv", q, C),
+            torch.einsum("bhk,bhk->bh", q, n))
+
+
 def mlstm_decode(p: Params, x: torch.Tensor, cache: Params, *,
                  num_heads: int, expand: int = 2
                  ) -> tuple[torch.Tensor, Params]:
-    """One-token step. x: (B, 1, d_model)."""
+    """One-token step. x: (B, 1, d_model). Partitioned, with x's rows
+    over the batch axes and its features over model (as the xLSTM's
+    decode places the residual stream), it runs where its weights and its
+    cache lie: x's features meet the projections' model-split contraction
+    dim, each partial product is reduced once or reduce-scattered onto the
+    heads that read it (:func:`sharding.like`), and the memory and the
+    normaliser advance on their own placements
+    (:func:`sharding.cache_step`), so neither a kernel nor a cache leaf
+    moves; the output comes back placed as ``x`` is."""
     B, _, d_model = x.shape
     d_inner = expand * d_model
     hd = d_inner // num_heads
 
-    u = dense(p["up"], x)
+    u = like(dense(p["up"], x), x)
     gate = dense(p["up_gate"], x)
-    q = unflatten(dense(p["wq"], u)[:, 0], -1, (num_heads, hd)).float()
-    k = unflatten((dense(p["wk"], u) * hd ** -0.5)[:, 0], -1,
-                  (num_heads, hd)).float()
-    v = unflatten(dense(p["wv"], u)[:, 0], -1, (num_heads, hd)).float()
-    gif = dense(p["w_if"], u).float()[:, 0]
+
+    def heads(w):
+        return unflatten(dense(w, u)[:, 0], -1,
+                         (num_heads, hd))
+
+    q = heads(p["wq"]).float()
+    k = (heads(p["wk"]) * hd ** -0.5).float()
+    v = heads(p["wv"]).float()
+    gif = whole(dense(p["w_if"], u)).float()[:, 0]
     i_g = sigmoid(gif[:, :num_heads])                           # (B,H)
     f_g = sigmoid(gif[:, num_heads:])
 
-    C = cache["C"] * f_g[..., None, None] + \
-        (i_g[..., None] * k)[..., :, None] * v[..., None, :]
-    n = cache["n"] * f_g[..., None] + i_g[..., None] * k
-    num = einsum("bhk,bhkv->bhv", q, C, batch=2)
-    den = einsum("bhk,bhk->bh", q, n, batch=2)
-    h = num / torch.clamp(torch.abs(den), min=1.0)[..., None]
+    C, n, num, den = cache_step(
+        _mlstm_step, cache["C"], "bhkv", cache["C"], cache["n"], q, k, v,
+        i_g, f_g, ins=("bhkv", "bhk", "bhk", "bhk", "bhv", "bh", "bh"),
+        outs=("bhkv", "bhk", "bhv", "bh"))
+    h = settled(num) / torch.clamp(torch.abs(settled(den)),
+                                   min=1.0)[..., None]
     h = flatten(h, 1)[:, None].to(x.dtype)
-    h = rmsnorm(p["norm"], h) * silu(gate)
-    return dense(p["down"], h), {"C": C, "n": n}
+    h = rmsnorm(p["norm"], h) * silu(like(gate, h))
+    return like(dense(p["down"], h), x), {"C": C, "n": n}
 
 
 # ---------------------------------------------------------------------------

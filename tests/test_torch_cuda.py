@@ -11,14 +11,16 @@ rap within rtol 1e-5, atol 1e-6 * L (another summation order).
 import dataclasses
 import functools
 import importlib
+import pathlib
+import sys
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.api import CoexecSpec, build_kernel, kernel_demo_inputs
-from repro_torch.core import (CoexecEngine, CoexecutorRuntime, MemoryModel,
-                              counits_from_devices)
+from repro_torch.core import (ArgRole, CoexecEngine, CoexecutorRuntime,
+                              MemoryModel, counits_from_devices)
 from repro_torch.core import dataplane
 from repro_torch.kernels.matmul import TILES
 from repro_torch.kernels import (demo_spheres, flash_attention,
@@ -808,6 +810,68 @@ def test_engine_kill_mid_launch_on_gpu_and_cpu(dev):
             engine.join_unit(victim)
             assert engine.loop.dead_units == set()
     assert not dataplane._mapped
+
+
+def _busy_alone(kernel, inputs, device, lo, hi):
+    """Busy seconds of rows [lo, hi) as one package on a unit of its own
+    (a fresh runtime, the kernel already warm in the process)."""
+    spec = CoexecSpec.builder().policy("static").memory("usm").build()
+    part = [np.ascontiguousarray(a[lo:hi]) if arg.role is ArgRole.SPLIT
+            else a for arg, a in zip(kernel.args, inputs)]
+    with CoexecutorRuntime.from_spec(
+            spec, units=counits_from_devices([device])) as rt:
+        rt.launch(hi - lo, kernel, part)
+        return sum(rt.last_stats.unit_busy_s.values())
+
+
+@pytest.mark.parametrize("name", ["taylor", "matmul", "mandelbrot", "ray",
+                                  "rap"])
+def test_pair_cpu_unit_runs_its_packages_near_their_time_alone(dev, name):
+    """``chip_smoke.py`` phase 4's USM hguided pair on [cuda:0, cpu]: Table
+    1 inputs, each unit's speed on a package of 1/HINT_FRACS of the rows
+    alone as its hint (the second of two), depth 1. The CPU unit's
+    packages take at most 3x what the same packages take alone on the CPU,
+    their fixed cost included: the median of five launches in which the
+    CPU unit ran a package (cuda:0 may finish taylor's rows before it pulls
+    one). A plain version runs as one call on the CPU
+    (``_lib.run_plain``), so it does not wait for the interpreter lock at
+    each op while the CUDA unit's worker runs Python. Gaussian's packages
+    carry a halo, which a slice of its rows run alone would not."""
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    kernel = build_kernel(name)
+    inputs = [dataplane.page_exclusive(a) for a in
+              chip_smoke.table1_inputs(name, np.random.default_rng(0))]
+    n = len(inputs[0])
+    hint = {}
+    for device in ("cuda:0", "cpu"):
+        rows = max(1, n // chip_smoke.HINT_FRACS[device])
+        for _ in range(2):      # the second of two: warm
+            hint[device] = rows / _busy_alone(kernel, inputs, device, 0, rows)
+    gpu, cpu = hint["cuda:0"], hint["cpu"]
+    share = gpu / (gpu + cpu)
+    spec = (CoexecSpec.builder().policy("hguided").memory("usm")
+            .pipeline_depth(1).dist(share, 1.0 - share).build())
+    ratios = []
+    for _ in range(10):
+        units = counits_from_devices(speed_hints=(gpu, cpu))
+        with CoexecutorRuntime.from_spec(spec, units=units) as rt:
+            rt.launch(n, kernel, inputs)
+            stats = rt.last_stats
+        pkgs = [p for p in stats.packages
+                if units[p.unit].device.type == "cpu"]
+        if not pkgs:        # cuda:0 took every row before the CPU pulled
+            continue
+        paired = stats.unit_busy_s[units[1].name]
+        alone = sum(_busy_alone(kernel, inputs, "cpu", p.offset,
+                                p.offset + p.size) for p in pkgs)
+        ratios.append(paired / alone)
+        if len(ratios) == 5:
+            break
+    print(name, "CPU busy in the pair over alone:", ratios)
+    assert len(ratios) == 5, "the CPU unit ran no package in most launches"
+    assert sorted(ratios)[2] <= 3.0, ratios
 
 
 def test_serve_real_without_cuda_errors_and_runs_nothing(dev, monkeypatch,

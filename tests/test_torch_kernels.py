@@ -810,3 +810,67 @@ def test_raytrace_unrolled_scene_is_the_main_paths():
     (scene,) = [a.default for a in ops._ray_kernel_impl(impl="pallas").args
                 if a.name == "spheres"]
     assert scene().shape == (main, 5)
+
+
+class _TorchCalls(torch.overrides.TorchFunctionMode):
+    """Counts the Python-level torch calls made in its block."""
+
+    def __init__(self):
+        super().__init__()
+        self.count = 0
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        self.count += 1
+        return func(*args, **(kwargs or {}))
+
+
+def _plain_cases():
+    g = torch.Generator().manual_seed(7)
+    x = torch.rand(300, generator=g) * 6 - 3
+    img = torch.rand(24, 10, generator=g)
+    d = torch.randn(3, 200, generator=g)
+    d = (d / d.norm(dim=0)).contiguous()
+    spheres = torch.from_numpy(demo_spheres(8))
+    vals = torch.randn(50, 9, generator=g)
+    lens = torch.randint(-1, 11, (50,), generator=g, dtype=torch.int32)
+    mods = {m: importlib.import_module(f"repro_torch.kernels.{m}")
+            for m in ("taylor", "mandelbrot", "gaussian", "raytrace", "rap")}
+    ray = mods["raytrace"]
+    return {
+        "taylor": (lambda: taylor_sin_plain(x, out=torch.empty(300)),
+                   lambda: mods["taylor"]._taylor_body(x, 12, None)),
+        "mandelbrot": (lambda: mandelbrot_plain(x, x.flip(0)),
+                       lambda: mods["mandelbrot"]._mandelbrot_body(
+                           x, x.flip(0), 64, None)),
+        "gaussian": (lambda: gaussian_blur_halo_plain(img, lo_pad=2),
+                     lambda: mods["gaussian"]._blur_body(
+                         img, list(mods["gaussian"].GAUSS_TAPS), 2, 0, 22,
+                         None)),
+        "ray": (lambda: raytrace_plain(d[0], d[1], d[2], spheres),
+                lambda: ray._raytrace_body(
+                    d[0], d[1], d[2], spheres,
+                    [ray.LIGHT, ray.HIT_EPS, ray.MIN_RADIUS], None)),
+        "rap": (lambda: rap_plain(vals, lens),
+                lambda: mods["rap"]._rap_body(vals, lens, None)),
+    }
+
+
+@pytest.mark.parametrize("name", ["taylor", "mandelbrot", "gaussian", "ray",
+                                  "rap"])
+def test_plain_version_runs_as_one_call_on_the_cpu(name):
+    """On CPU tensors a plain version runs its body as one TorchScript call
+    (``_lib.run_plain``): a handful of Python-level torch calls (its
+    checks and the call) where the body op by op
+    makes one a step (mandelbrot: hundreds). Each of those gives up the
+    interpreter lock and takes it back, which a co-execution pair's CUDA
+    worker made the CPU unit wait for. The graph's result is the eager
+    body's, bit for bit."""
+    plain, body = _plain_cases()[name]
+    want = body()
+    got = plain()
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    with _TorchCalls() as graph:
+        plain()
+    with _TorchCalls() as eager:
+        body()
+    assert graph.count <= 10 and graph.count < eager.count

@@ -311,9 +311,63 @@ def run(rank, port, ckpt, out):
                 "dtensor_grads": all(type(g).__name__ == "DTensor"
                                      for g in leaves(grads))}
 
+        from repro_torch.models import attention
+        attention.init_kv_cache = functools.partial(attention.init_kv_cache,
+                                                    dtype=torch.float32)
+
+        def decode_parity(arch, **changes):
+            # one partitioned decode step of reduced arch in f32 (its KV
+            # ring too), from a cache two plain steps advanced, against the
+            # same step unpartitioned: logits and every leaf of the
+            # advanced cache
+            cfg = dataclasses.replace(get_config(arch).reduced(), **changes)
+            model = build_model(cfg)
+            params = model.init(torch.Generator().manual_seed(1), "cpu")
+            tokens = torch.from_numpy(np.random.default_rng(1).integers(
+                0, cfg.vocab_size, (3, 8, 1)))
+            with torch.no_grad():
+                cache = model.init_cache(8, 32, device="cpu")
+                for t in tokens[:2]:
+                    _, cache = model.decode_step(params, t, cache)
+                want, want_cache = model.decode_step(params, tokens[2],
+                                                     cache)
+                placed = sharding.place_cache(cache, mesh)
+                with sharding.use_mesh(mesh):
+                    dtokens = sharding.distribute_tensor(
+                        tokens[2], mesh, sharding.batch_spec((8, 1)))
+                with sharding.partitioned(mesh):
+                    logits, new = model.decode_step(
+                        sharding.place_params(params, mesh), dtokens,
+                        placed)
+            v = cfg.vocab_size
+            got = [(path[0], a, b, c) for (path, a), (_, b), (_, c) in zip(
+                leaves_with_path(new), leaves_with_path(want_cache),
+                leaves_with_path(placed)) if isinstance(b, torch.Tensor)]
+            return {
+                "logits": float((logits.full_tensor()[:, :v] - want[:, :v])
+                                .abs().max() / want[:, :v].abs().max()),
+                "cache": max(float((a.full_tensor() - b).abs().max()
+                                   / b.abs().max()) for _, a, b, _ in got),
+                "leaves": len(got),
+                # the Mamba-2 and mLSTM states (the sLSTM's comes back
+                # whole over model, which re-places with no collective)
+                "placed": all(list(a.placements) == list(c.placements)
+                              for key, a, _, c in got
+                              if key in ("super", "tail", "mlstm"))}
+
         result = parity("qwen3-0.6b")
         result["moe"] = parity("phi3.5-moe-42b-a6.6b")
         result["xlstm"] = parity("xlstm-1.3b")
+        # the states over model on their heads, as the reduced configs
+        # place them; with one head, on the dim after it (the mLSTM's
+        # keys, the SSM's state dim), where the read-out is a partial sum
+        result["decode"] = {
+            "zamba2-7b": decode_parity("zamba2-7b"),
+            "xlstm-1.3b": decode_parity("xlstm-1.3b"),
+            "zamba2-7b one head": decode_parity("zamba2-7b",
+                                                ssm_head_dim=128),
+            "xlstm-1.3b one head": decode_parity("xlstm-1.3b",
+                                                 num_heads=1)}
         cfg = get_config("qwen3-0.6b").reduced()
         params = build_model(cfg).init(torch.Generator().manual_seed(0),
                                        "cpu")
@@ -426,6 +480,23 @@ def test_partitioned_xlstm_equals_unpartitioned(four_ranks):
         assert r["dtensor_grads"]
         assert r["logits"] <= 1e-5 and r["loss"] <= 1e-5
         assert r["grads"] <= 1e-5
+
+
+@pytest.mark.parametrize("case", ["zamba2-7b", "xlstm-1.3b",
+                                  "zamba2-7b one head",
+                                  "xlstm-1.3b one head"])
+def test_partitioned_decode_equals_unpartitioned(four_ranks, case):
+    """One decode step of reduced zamba2-7b and xlstm-1.3b on the (2, 2)
+    mesh: the Mamba-2 and mLSTM steps run where their kernels and caches
+    lie, and the logits and every leaf of the advanced cache equal the
+    unpartitioned step's, each leaf placed as the cache came in (so the
+    dry run's out placements move no state). With one head the states
+    split over model on the dim after the heads, and the read-out is a
+    partial sum reduced once."""
+    for r in four_ranks:
+        r = r["decode"][case]
+        assert r["leaves"] > 0 and r["placed"]
+        assert r["logits"] <= 1e-5 and r["cache"] <= 1e-5
 
 
 def test_padded_rows_come_from_the_ranks_that_hold_them(four_ranks):
@@ -793,6 +864,29 @@ def test_moe_gathers_no_token_rows(small_cells):
     rows = cfg.num_experts // CUBE.shape[-1] * capacity * cfg.d_model * 2
     assert by_op[("all-reduce", "block moe_layer shard")] == \
         cfg.num_layers * accum * rows                       # bf16 rows
+
+
+@pytest.mark.parametrize("arch,block", [("zamba2-7b", "mamba2_decode"),
+                                        ("xlstm-1.3b", "mlstm_decode")])
+def test_decode_gathers_no_model_split_kernel(small_cells, arch, block):
+    """Reduced decode_32k on the (2, 2, 2) mesh: the Mamba-2 and mLSTM
+    steps multiply on their kernels' placements (the token rows over the
+    batch axes only, partial products reduced once), so no all-gather is
+    booked to their products, where gathering the superblocks' model-split
+    kernels took 217,088 B (zamba2-7b) and 299,008 B (xlstm-1.3b); and the
+    advanced caches are formed where they lie, so the out placements
+    redistribute no state. zamba2-7b's total stays within 1.5x of GSPMD's
+    144,108 B on the same layout (``scripts/torch_partition_table.py``),
+    where it was 405,120 B."""
+    got = dryrun.run_cell(arch, "decode_32k", "multi", verbose=False)
+    by_op = {(kind, op): nbytes for kind, op, nbytes in got["coll_by_op"]}
+    gathered = {op: nbytes for (kind, op), nbytes in by_op.items()
+                if kind == "all-gather" and f"{block} dense" in op}
+    assert gathered == {}, by_op
+    assert not any(op == "redistribute" and kind != "all-gather"
+                   for kind, op in by_op), by_op
+    if arch == "zamba2-7b":
+        assert got["coll_bytes_per_dev"] <= 1.5 * 144_108
 
 
 @pytest.mark.parametrize("arch,key", [("zamba2-7b", "super"),
