@@ -4,7 +4,7 @@ Public surface:
     CoexecutorRuntime, counits_from_devices     — real co-execution (Listing 1)
                                                   on [cuda:0, cpu]
     CoexecEngine, LaunchHandle, LaunchStats     — persistent engine
-    ExecutionLoop, LaunchState                  — the shared control plane
+    ExecutionLoop, LaunchState, Span            — the shared control plane
                                                   both backends drive
     AdmissionConfig, AdmissionController, ...   — FIFO/WFQ/EDF admission,
                                                   preemption, shedding
@@ -41,7 +41,7 @@ from .energy import (EnergyReport, H100_POWER, PowerModel, PAPER_POWER,
                      edp_ratio, energy_report, geomean)
 from .engine import (CoexecEngine, LaunchHandle, LaunchStats,
                      LaunchWaitTimeout)
-from .exec import ExecutionLoop, LaunchState
+from .exec import ExecutionLoop, LaunchState, Span
 from .memory import H100_MEMORY_COSTS, MemoryCosts, MemoryModel
 from .package import Package, Range, validate_cover
 from .profiler import EwmaThroughput, SpeedBoard
@@ -71,7 +71,7 @@ __all__ = [
     "MemoryModel", "MultiSimResult", "OutputSpec", "PAPER_POWER",
     "Package", "PowerModel", "REGULAR", "Range", "SPECS",
     "SPEED_HINT_POLICIES", "Scheduler", "ShedRecord", "SimResult",
-    "SimUnit", "SpeedBoard", "StaticScheduler", "Supervisor",
+    "SimUnit", "Span", "SpeedBoard", "StaticScheduler", "Supervisor",
     "TenantRow", "TorchUnit", "Trace", "TrafficReplay", "UnitPool",
     "WorkStealingScheduler", "Workload", "absorb_share",
     "as_coexec_kernel", "capacity_items_per_s", "counits_from_devices",

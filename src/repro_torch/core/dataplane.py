@@ -416,9 +416,15 @@ class _CudaArray:
             "data": (dev_ptr, False), "version": 2, "strides": None}
 
 
-def _map_host(arr: np.ndarray, device: torch.device
-              ) -> tuple[torch.Tensor, list]:
+def _map_host(arr: np.ndarray, device: torch.device, *,
+              waits: Optional[list] = None) -> tuple[torch.Tensor, list]:
     """A tensor on ``device`` aliasing ``arr``'s page-locked host memory.
+
+    Args:
+        arr: the host array.
+        device: the CUDA device.
+        waits: if given, the seconds spent acquiring the registry's lock
+            are appended to it.
 
     Returns:
         ``(view, starts)``: the device view and the registered ranges it
@@ -440,7 +446,10 @@ def _map_host(arr: np.ndarray, device: torch.device
     ptr = arr.ctypes.data
     lo = ptr - ptr % _PAGE
     hi = -(-(ptr + arr.nbytes) // _PAGE) * _PAGE
+    t0 = time.perf_counter()
     with _mapped_lock:
+        if waits is not None:
+            waits.append(time.perf_counter() - t0)
         hits, gaps = _split_pages(lo, hi, [(s, v[0])
                                            for s, v in _mapped.items()])
         done = []
@@ -465,11 +474,17 @@ def _map_host(arr: np.ndarray, device: torch.device
                            device=device), starts
 
 
-def _unmap_host(starts: list) -> None:
-    """Drop one array's hold on its ranges; unregister the unused ones."""
+def _unmap_host(starts: list, *, waits: Optional[list] = None) -> None:
+    """Drop one array's hold on its ranges; unregister the unused ones.
+
+    ``waits``, if given, gets the seconds spent acquiring the lock.
+    """
     from ..kernels import _lib
 
+    t0 = time.perf_counter()
     with _mapped_lock:
+        if waits is not None:
+            waits.append(time.perf_counter() - t0)
         for s in starts:
             entry = _mapped[s]
             entry[1] -= 1
@@ -493,10 +508,13 @@ class LaunchPlan:
     host ranges, which :meth:`release` gives back once the launch ends,
     and ``out_stage``: the page-aligned copy a CUDA unit writes when
     ``out`` shares a page with another allocation (``None`` otherwise).
+    ``map_lock_wait_s`` sums the seconds its mappings waited for the
+    lock over the process's mapped ranges (``None`` until one maps).
     """
 
     __slots__ = ("kernel", "inputs", "out", "total", "counters", "trailing",
-                 "out_stage", "_views", "_mapped_starts", "_held", "_lock")
+                 "out_stage", "map_lock_wait_s", "_views", "_mapped_starts",
+                 "_held", "_lock")
 
     def __init__(self, kernel: CoexecKernel, inputs: list, out: np.ndarray,
                  total: int):
@@ -507,6 +525,7 @@ class LaunchPlan:
         self.counters = DataPlaneCounters()
         self.trailing = tuple(out.shape[1:])
         self.out_stage: Optional[np.ndarray] = None
+        self.map_lock_wait_s: Optional[float] = None  # guarded-by: _lock
         self._views: dict[str, tuple] = {}  # guarded-by: _lock
         self._mapped_starts: list = []      # guarded-by: _lock
         self._held: list = []               # guarded-by: _lock
@@ -544,24 +563,33 @@ class LaunchPlan:
                 arrays.append(self.out if self.out_stage is None
                               else self.out_stage)
                 self._held = arrays   # the views do not keep them alive
-                mapped = []
+                mapped, waits = [], []
                 for a in arrays:
-                    view, starts = _map_host(a, device)
+                    view, starts = _map_host(a, device, waits=waits)
                     self._mapped_starts.append(starts)
                     mapped.append(view)
+                self.map_lock_wait_s = (self.map_lock_wait_s or 0.0
+                                        ) + sum(waits)
                 got = (mapped[:-1], mapped[-1])
             self._views[device.type] = got
             return got
 
-    def release(self) -> None:
-        """Drop the views and unmap the host ranges (idempotent)."""
+    def release(self) -> Optional[float]:
+        """Drop the views and unmap the host ranges (idempotent).
+
+        Returns:
+            The seconds the unmapping waited for the lock over mapped
+            ranges, or ``None`` if it had nothing to unmap.
+        """
         with self._lock:
             held, self._mapped_starts = self._mapped_starts, []
             arrays, self._held = self._held, []
             self._views.clear()
+        waits: list = []
         for starts in held:
-            _unmap_host(starts)
+            _unmap_host(starts, waits=waits)
         del arrays                      # freed only once unmapped
+        return sum(waits) if held else None
 
 
 @dataclasses.dataclass

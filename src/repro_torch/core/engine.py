@@ -66,7 +66,7 @@ from .admission import (AdmissionConfig, AdmissionController, AdmissionFull,
 from .dataplane import (ArgSpec, CoexecKernel, DataPlaneCounters,
                         OutputSpec, as_coexec_kernel, make_plane,
                         page_aligned_zeros)
-from .exec import Backend, ExecutionLoop, LaunchState, LaunchStats
+from .exec import Backend, ExecutionLoop, LaunchState, LaunchStats, Span
 from .memory import MemoryModel
 from .package import Package
 from .profiler import SpeedBoard
@@ -177,11 +177,12 @@ class _Launch(LaunchState):
 
     The control-plane fields live on :class:`~repro_torch.core.exec.LaunchState`
     (the shared loop reads/writes only those); this subclass adds what
-    the :class:`RealBackend` needs to actually run packages.
+    the :class:`RealBackend` needs to actually run packages, and
+    ``spans``: the ``plan`` and ``admit`` spans, until its stats exist.
     """
 
     __slots__ = ("kernel", "inputs", "out", "adaptive", "handle", "plan",
-                 "on_units", "outcome")
+                 "on_units", "outcome", "spans")
 
     def __init__(self, launch_id: int, scheduler: Scheduler, kernel: Callable,
                  inputs: Sequence[np.ndarray], out: np.ndarray,
@@ -199,6 +200,7 @@ class _Launch(LaunchState):
         # lock), and the result or error waiting for them to drain
         self.on_units = 0
         self.outcome = None
+        self.spans: list[Span] = []
 
 
 def _fuse_key(config: AdmissionConfig, scheduler: Scheduler,
@@ -290,6 +292,15 @@ class RealBackend(Backend):
         # set by the engine: a launch resolves only once none of its
         # packages runs on a unit and its arrays are unmapped (settle)
         self.settles = False
+        # the unit index of an engine worker's thread (see serve_on)
+        self._thread = threading.local()
+
+    def serve_on(self, unit: int) -> None:
+        """Mark the calling thread as the worker of ``unit``.
+
+        A ``settle`` span the thread records names that unit.
+        """
+        self._thread.unit = unit
 
     # -- substrate contract -------------------------------------------------
     def now(self) -> float:
@@ -456,20 +467,19 @@ class RealBackend(Backend):
 
         Bucketed members copy only their own extent — the bucket's pad
         rows are computed (on padded zero inputs) but never land. The
-        member's own plan never ran a package, so it is released here.
+        member's own plan never ran a package; :meth:`deliver` releases
+        it.
         """
         np.copyto(member.out, fused.out[index][:member.out.shape[0]])
-        member.plan.release()
 
     def deliver(self, launch: _Launch) -> None:
         """Resolve the launch's future with its (now written) output."""
+        launch.stats.spans[:0] = launch.spans
         launch.handle.stats = launch.stats
         self._resolve(launch, launch.out)
 
     def fail(self, launch: _Launch, err: BaseException) -> None:
         """Resolve the launch's future with its failure."""
-        if launch.fused:
-            launch.plan.release()     # a member: its own plan never ran
         self._resolve(launch, err)
 
     def _resolve(self, launch: _Launch, outcome) -> None:
@@ -479,22 +489,39 @@ class RealBackend(Backend):
         through their page-locked mapping, so the caller gets them back
         only when no package of the launch (a killed unit's zombie
         included) runs on a unit and the mapping is gone: a copy the
-        caller makes of ``out`` can then never race the unmapping.
+        caller makes of ``out`` can then never race the unmapping. A
+        fused member's own plan never ran a package: it is released
+        here in any case.
         """
-        if self.settles:
-            if launch.on_units:
-                launch.outcome = outcome    # settle() resolves it
-                return
-            if launch.plan is not None:
-                launch.plan.release()
+        if self.settles and launch.on_units:
+            launch.outcome = outcome        # settle() resolves it
+            return
+        if launch.plan is not None and (self.settles or launch.fused):
+            self._release(launch)
         _set_outcome(launch, outcome)
 
     def settle(self, launch: _Launch) -> None:
         """Unmap a launch none of whose packages runs, then resolve it."""
-        launch.plan.release()
+        self._release(launch)
         outcome, launch.outcome = launch.outcome, None
         if outcome is not None:
             _set_outcome(launch, outcome)
+
+    def _release(self, launch: _Launch) -> None:
+        """Release the launch's plan, as its ``settle`` span if it has
+        stats, on the unit of the worker thread that runs it."""
+        t0 = time.perf_counter()
+        waited = launch.plan.release()
+        if launch.stats is not None:
+            launch.stats.spans.append(Span(
+                "settle", launch.id, "launch", t0, time.perf_counter(),
+                unit=getattr(self._thread, "unit", None),
+                counts=_lock_wait(waited)))
+
+
+def _lock_wait(seconds: Optional[float]) -> tuple:
+    """A span's ``lock_wait_s`` count: none where no range was (un)mapped."""
+    return () if seconds is None else (("lock_wait_s", seconds),)
 
 
 def _set_outcome(launch: _Launch, outcome) -> None:
@@ -704,7 +731,8 @@ class CoexecEngine:
                inputs: Sequence[np.ndarray], out: np.ndarray,
                *, adaptive: bool = True, tenant: Optional[str] = None,
                weight: float = 1.0, block: bool = True,
-               deadline_s: Optional[float] = None) -> LaunchHandle:
+               deadline_s: Optional[float] = None,
+               t_plan: Optional[float] = None) -> LaunchHandle:
         """Enqueue one co-execution; returns immediately with its handle.
 
         The scheduler must be built for this engine's unit count. Packages
@@ -734,6 +762,9 @@ class CoexecEngine:
                 handle resolves *immediately* with
                 :class:`~repro_torch.core.admission.LaunchShed`, on both the
                 blocking and non-blocking submit paths.
+            t_plan: ``time.perf_counter()`` at which the caller began
+                planning the launch (the start of its ``plan`` span);
+                default this call's entry.
 
         Returns:
             The launch's :class:`LaunchHandle`.
@@ -745,6 +776,8 @@ class CoexecEngine:
             RuntimeError: engine not started, or shut down.
             AdmissionFull: at capacity and ``block=False``.
         """
+        if t_plan is None:
+            t_plan = time.perf_counter()
         kernel = as_coexec_kernel(kernel, len(inputs))
         if scheduler.num_units != len(self.units):
             raise ValueError(
@@ -770,14 +803,19 @@ class CoexecEngine:
             return self._admit(scheduler, kernel, inputs, out, plan,
                                adaptive=adaptive, tenant=tenant,
                                weight=weight, block=block,
-                               deadline_s=deadline_s)
+                               deadline_s=deadline_s,
+                               planned=(t_plan, time.perf_counter()))
         except BaseException:
             plan.release()
             raise
 
     def _admit(self, scheduler, kernel, inputs, out, plan, *, adaptive,
-               tenant, weight, block, deadline_s) -> LaunchHandle:
-        """Enqueue one planned launch under the engine lock."""
+               tenant, weight, block, deadline_s, planned) -> LaunchHandle:
+        """Enqueue one planned launch under the engine lock.
+
+        ``planned`` is the ``plan`` span's start and end; the ``admit``
+        span runs from that end to the offer to the loop (``t_submit``).
+        """
         with self._cv:
             if self._stop:
                 raise RuntimeError("engine is shut down")
@@ -796,6 +834,11 @@ class CoexecEngine:
             launch = _Launch(self.loop.next_id(), scheduler, kernel, inputs,
                              out, adaptive)
             launch.plan = plan
+            launch.spans += [
+                Span("plan", launch.id, "launch", *planned,
+                     counts=_lock_wait(plan.map_lock_wait_s)),
+                Span("admit", launch.id, "launch", planned[1],
+                     launch.t_submit)]
             if tenant is not None:
                 launch.tenant = str(tenant)
             launch.weight = float(weight)
@@ -882,6 +925,7 @@ class CoexecEngine:
         makes its unit's CUDA stream current for its whole life (the
         current stream is per thread).
         """
+        self.backend.serve_on(unit_idx)
         with self.units[unit_idx].stream_context():
             self._work(unit_idx)
 

@@ -45,7 +45,38 @@ from .dataplane import DataPlaneCounters
 from .package import Package, Range, validate_cover
 from .scheduler import Scheduler
 
-__all__ = ["Backend", "ExecutionLoop", "LaunchState", "LaunchStats"]
+__all__ = ["Backend", "ExecutionLoop", "LaunchState", "LaunchStats", "Span"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Span:
+    """One phase of a launch's life, on the clock of the package stamps.
+
+    ``launch`` is the launch's id, ``parent`` the name of the span it
+    nests in (``None`` for the root ``launch``), ``unit`` the index of
+    the Coexecution Unit whose worker ran it (``None`` on a caller's
+    thread) and ``counts`` ``(name, value)`` pairs measured inside it,
+    such as ``("lock_wait_s", 0.002)`` where a ``plan`` or ``settle``
+    took the lock over mapped host ranges.
+    """
+
+    name: str
+    launch: Optional[int]
+    parent: Optional[str]
+    start: float
+    end: float
+    unit: Optional[int] = None
+    counts: tuple = ()
+
+    @property
+    def seconds(self) -> float:
+        """The span's length."""
+        return self.end - self.start
+
+    def count(self, name: str, default: Optional[float] = 0.0
+              ) -> Optional[float]:
+        """The value of the count ``name``, or ``default``."""
+        return dict(self.counts).get(name, default)
 
 
 @dataclasses.dataclass
@@ -67,6 +98,11 @@ class LaunchStats:
     explicit H2D/D2H staging copies/bytes — so the USM-vs-BUFFERS
     distinction of the configured :class:`~.memory.MemoryModel` is
     observable per launch (USM performs zero staging copies).
+
+    ``launch_id`` is the launch's id (``LaunchHandle.launch_id``) and
+    ``spans`` the phases the backend recorded outside the packages: the
+    engine's ``plan``, ``admit`` and ``settle``; the simulator records
+    none. :meth:`timeline` adds the phases the package stamps give.
     """
 
     total_s: float
@@ -74,11 +110,46 @@ class LaunchStats:
     unit_busy_s: dict[str, float]
     data: DataPlaneCounters = dataclasses.field(
         default_factory=DataPlaneCounters)
+    launch_id: Optional[int] = None
+    spans: list[Span] = dataclasses.field(default_factory=list)
 
     @property
     def num_packages(self) -> int:
         """Number of packages this launch was served as."""
         return len(self.packages)
+
+    def timeline(self) -> list[Span]:
+        """The launch's whole tree of spans, the root first.
+
+        Below the root ``launch`` (from the first span's start to the last
+        one's end) come the recorded :attr:`spans`; ``queue``, from the
+        launch's admission (the end of ``admit``, else ``total_s`` before
+        the last collection) to its first package's issue; and for each
+        package, on its unit, ``stage`` (``t_issue`` to ``t_launch``),
+        ``compute`` (to ``t_complete``) and ``collect`` (to
+        ``t_collected``). The rest is in start order.
+        """
+        lid = self.launch_id
+        spans = list(self.spans)
+        if self.packages:
+            admit = [s.end for s in self.spans if s.name == "admit"]
+            end = max(p.t_collected for p in self.packages)
+            submitted = admit[0] if admit else end - self.total_s
+            spans.append(Span("queue", lid, "launch", submitted,
+                              min(p.t_issue for p in self.packages)))
+        for p in self.packages:
+            spans += [Span("stage", lid, "launch", p.t_issue, p.t_launch,
+                           unit=p.unit),
+                      Span("compute", lid, "launch", p.t_launch,
+                           p.t_complete, unit=p.unit),
+                      Span("collect", lid, "launch", p.t_complete,
+                           p.t_collected, unit=p.unit)]
+        spans.sort(key=lambda s: s.start)
+        if not spans:
+            return []
+        root = Span("launch", lid, None, spans[0].start,
+                    max(s.end for s in spans))
+        return [root] + spans
 
 
 class LaunchState:
@@ -610,7 +681,7 @@ class ExecutionLoop:
             total_s=end - launch.t_submit,
             packages=list(launch.done_pkgs),
             unit_busy_s=self._busy_of(launch.done_pkgs),
-            data=self.backend.launch_counters(launch))
+            data=self.backend.launch_counters(launch), launch_id=launch.id)
         self.backend.deliver(launch)
 
     def _demux_fused(self, fused: LaunchState, end: float) -> None:
@@ -642,5 +713,6 @@ class ExecutionLoop:
             self.backend.commit_member(fused, m, i, cover)
             m.finalized = True
             m.stats = LaunchStats(total_s=end - m.t_submit, packages=[mp],
-                                  unit_busy_s=busy, data=shares[i])
+                                  unit_busy_s=busy, data=shares[i],
+                                  launch_id=m.id)
             self.backend.deliver(m)

@@ -69,10 +69,6 @@ class Package:
     def compute_time(self) -> float:
         return self.t_complete - self.t_launch
 
-    @property
-    def wall_time(self) -> float:
-        return self.t_collected - self.t_issue
-
 
 def validate_cover(packages: list[Package], total: int) -> None:
     """Assert that packages exactly tile [0, total) — no gaps, no overlap.

@@ -31,6 +31,8 @@ context manager) drains the engine and joins its worker threads.
 from __future__ import annotations
 
 import os
+import threading
+import time
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -120,6 +122,8 @@ class CoexecutorRuntime:
         self._spec = spec
         self._units: Optional[list[TorchUnit]] = None
         self._engine: Optional[CoexecEngine] = None
+        # two threads' first launches must not start two engines
+        self._engine_lock = threading.Lock()
         self.last_stats: Optional[LaunchStats] = None
 
     # -- declarative configuration (the CoexecSpec surface) ----------------
@@ -178,22 +182,24 @@ class CoexecutorRuntime:
         return self._engine
 
     def _get_engine(self) -> CoexecEngine:
-        if self._engine is None or not self._engine.running:
-            if self._units is None:
-                self._units = self._spec.build_units()
-            if any(u.device.type == "cuda" for u in self._units):
-                # the CPU unit's plain kernels use torch's intra-op
-                # threads; leave one core to drive the CUDA unit
-                torch.set_num_threads(max(1, (os.cpu_count() or 2) - 1))
-            self._engine = CoexecEngine.from_spec(
-                self._spec, units=self._units).start()
-        return self._engine
+        with self._engine_lock:
+            if self._engine is None or not self._engine.running:
+                if self._units is None:
+                    self._units = self._spec.build_units()
+                if any(u.device.type == "cuda" for u in self._units):
+                    # the CPU unit's plain kernels use torch's intra-op
+                    # threads; leave one core to drive the CUDA unit
+                    torch.set_num_threads(max(1, (os.cpu_count() or 2) - 1))
+                self._engine = CoexecEngine.from_spec(
+                    self._spec, units=self._units).start()
+            return self._engine
 
     def shutdown(self) -> None:
         """Drain in-flight launches and join the engine's workers."""
-        if self._engine is not None:
-            self._engine.shutdown()
-            self._engine = None
+        with self._engine_lock:
+            engine, self._engine = self._engine, None
+        if engine is not None:
+            engine.shutdown()
 
     def __enter__(self) -> "CoexecutorRuntime":
         return self
@@ -246,6 +252,7 @@ class CoexecutorRuntime:
             AdmissionFull: engine at capacity and ``block=False``.
             ValueError: invalid scheduler parameters for this policy.
         """
+        t_plan = time.perf_counter()      # the launch's plan span starts
         engine = self._get_engine()
         n = len(engine.units)
         sched_spec = self._spec.scheduler
@@ -258,7 +265,8 @@ class CoexecutorRuntime:
             else:
                 out = np.zeros((total, *out_trailing_shape), dtype=out_dtype)
         return engine.submit(sched, kernel, inputs, out,
-                             tenant=tenant, weight=weight, block=block)
+                             tenant=tenant, weight=weight, block=block,
+                             t_plan=t_plan)
 
     def launch(self, total: int, kernel: Callable,
                inputs: Sequence[np.ndarray],

@@ -13,6 +13,8 @@ import functools
 import importlib
 import pathlib
 import sys
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -955,6 +957,57 @@ def test_served_requests_copy_to_the_card_while_others_are_mapped(dev):
                                   on_result=check)
     assert sorted(seen) == sorted(list(range(16)) * 2)
     assert [r["requests"] for r in rows] == [16, 16]
+    assert not dataplane._mapped
+
+
+def test_plan_counts_its_wait_for_the_mapping_lock(dev):
+    """A second thread holds the registry of mapped ranges for 50 ms while
+    a launch on [cuda:0, cpu] plans under USM: its ``plan`` span counts
+    the wait in ``lock_wait_s``."""
+    n = 1 << 16
+    kernel = build_kernel("taylor")
+    spec = CoexecSpec.builder().policy("dynamic").memory("usm").build()
+    held = threading.Event()
+
+    def hold():
+        with dataplane._mapped_lock:
+            held.set()
+            time.sleep(0.05)
+
+    with CoexecutorRuntime.from_spec(spec) as rt:
+        rt.launch(n, kernel, kernel_demo_inputs("taylor", n, seed=1))
+        holder = threading.Thread(target=hold)
+        holder.start()
+        held.wait()
+        h = rt.launch_async(n, kernel, kernel_demo_inputs("taylor", n,
+                                                          seed=2))
+        h.result(timeout=60)
+        holder.join()
+    plan, = [s for s in h.stats.spans if s.name == "plan"]
+    assert plan.count("lock_wait_s") >= 0.04, plan
+    assert plan.seconds >= plan.count("lock_wait_s")
+    assert not dataplane._mapped
+
+
+def test_a_usm_launch_settles_on_a_named_unit(dev):
+    """A USM launch on [cuda:0, cpu] unmaps its arrays in ``settle``, on
+    the worker of the unit that retired its last package."""
+    n = 1 << 20
+    kernel = build_kernel("taylor")
+    spec = CoexecSpec.builder().policy("hguided").memory("usm").build()
+    with CoexecutorRuntime.from_spec(spec) as rt:
+        for seed in range(3):
+            h = rt.launch_async(n, kernel, kernel_demo_inputs("taylor", n,
+                                                              seed=seed))
+            h.result(timeout=60)
+            settle, = [s for s in h.stats.spans if s.name == "settle"]
+            assert settle.seconds > 0
+            assert settle.unit in (0, 1)
+            assert list(h.stats.unit_busy_s)[settle.unit] in (
+                [u.name for u in rt.engine.units])
+            assert settle.count("lock_wait_s", None) >= 0
+            last = max(h.stats.packages, key=lambda p: p.t_collected)
+            assert last.t_collected <= settle.start
     assert not dataplane._mapped
 
 
