@@ -349,7 +349,8 @@ def kernel_demo_inputs(name: str, n: int, *, seed: int = 0) -> list:
 
     Returns:
         Host input arrays acceptable to the kernel's declared arguments,
-        each owning its pages (USM on a CUDA unit maps them in place).
+        each owning its pages (USM on a CUDA unit copies them as they
+        stand).
 
     Raises:
         KeyError: unknown kernel.

@@ -19,13 +19,17 @@ a copy-back out for every package.
   :class:`~repro_torch.core.memory.MemoryModel`, each meaning on the card
   what it says:
 
-  - :class:`UsmDataPlane` moves nothing. The CPU unit computes on
-    ``torch.from_numpy`` views of the launch's arrays; a CUDA unit
-    computes on the same host arrays, page-locked and mapped into the
-    device's address space once per launch (``cudaHostRegister`` with
-    ``cudaHostRegisterMapped``), so its kernels read each package's rows
-    and write its result over PCIe in place. ``h2d_copies ==
-    d2h_copies == 0`` by construction.
+  - :class:`UsmDataPlane` collects nothing. The CPU unit computes on
+    ``torch.from_numpy`` views of the launch's arrays. A CUDA unit writes
+    its result in place into the host output, page-locked and mapped
+    into the device's address space once per launch
+    (``cudaHostRegister`` with ``cudaHostRegisterMapped``), and reads
+    its inputs from device memory: the copy engine copies each
+    package's rows of a split input, and each broadcast input whole
+    once per launch, from the pageable host arrays on the unit's
+    stream. Those copies are the memory model's, not staging: each CUDA
+    package's ``stage`` span counts their bytes (``usm_copy_bytes``),
+    and ``h2d_copies == d2h_copies == 0`` by construction.
   - :class:`BuffersDataPlane` stages each package: split chunks are
     assembled in reused (pinned, for CUDA) host scratch and copied to the
     unit, broadcast operands are copied per package, and the result is
@@ -321,9 +325,10 @@ class DataPlaneCounters:
 #
 # CUDA takes a host pointer inside a registered page for page-locked
 # memory, so a pageable copy of an array that shares a page with a mapped
-# one fails (``cudaErrorInvalidValue``). Only arrays that own their pages
-# are therefore mapped in place; any other is mapped through a page-aligned
-# copy (:func:`owns_pages`, :func:`page_exclusive`).
+# one fails (``cudaErrorInvalidValue``). Only outputs that own their pages
+# are therefore mapped in place, any other through a page-aligned copy;
+# and an input that does not own its pages reaches the card from a
+# page-aligned copy (:func:`owns_pages`, :func:`page_exclusive`).
 _PAGE = mmap.PAGESIZE
 _mapped_lock = threading.Lock()
 _mapped: dict[int, list] = {}   # start -> [end, users]; guarded-by: _mapped_lock
@@ -498,23 +503,35 @@ def _torch_dtype(dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dtype=dtype)).dtype
 
 
+def _to_device(host: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A contiguous copy of ``host`` in ``device``'s memory.
+
+    The copy is queued on the current stream. From pageable memory the
+    call returns once the host bytes are read, so the copy never races a
+    later write to them.
+    """
+    return torch.empty(host.shape, dtype=host.dtype, device=device).copy_(
+        host, non_blocking=True)
+
+
 class LaunchPlan:
     """Per-launch data-plane state: bound kernel, arrays, counters.
 
     Built once per submit by :meth:`DataPlane.plan`; worker threads share
     it (counter updates are lock-protected, the arrays are only read and
     the output container is written in disjoint package ranges). Under
-    USM it also holds the per-device views of the arrays and the mapped
-    host ranges, which :meth:`release` gives back once the launch ends,
-    and ``out_stage``: the page-aligned copy a CUDA unit writes when
-    ``out`` shares a page with another allocation (``None`` otherwise).
-    ``map_lock_wait_s`` sums the seconds its mappings waited for the
-    lock over the process's mapped ranges (``None`` until one maps).
+    USM it also holds each device's views, the broadcast inputs' copies
+    in a CUDA device's memory and the output's mapped host ranges, which
+    :meth:`release` gives back once the launch ends, and ``out_stage``:
+    the page-aligned copy a CUDA unit writes when ``out`` shares a page
+    with another allocation (``None`` otherwise). ``map_lock_wait_s``
+    sums the seconds its mappings waited for the lock over the process's
+    mapped ranges (``None`` until one maps).
     """
 
     __slots__ = ("kernel", "inputs", "out", "total", "counters", "trailing",
-                 "out_stage", "map_lock_wait_s", "_views", "_mapped_starts",
-                 "_held", "_lock")
+                 "out_stage", "map_lock_wait_s", "_views", "_copies",
+                 "_mapped_starts", "_held", "_lock", "_copy_lock")
 
     def __init__(self, kernel: CoexecKernel, inputs: list, out: np.ndarray,
                  total: int):
@@ -527,9 +544,11 @@ class LaunchPlan:
         self.out_stage: Optional[np.ndarray] = None
         self.map_lock_wait_s: Optional[float] = None  # guarded-by: _lock
         self._views: dict[str, tuple] = {}  # guarded-by: _lock
+        self._copies: dict[tuple, tuple] = {}  # guarded-by: _copy_lock
         self._mapped_starts: list = []      # guarded-by: _lock
         self._held: list = []               # guarded-by: _lock
         self._lock = threading.Lock()
+        self._copy_lock = threading.Lock()
 
     def add(self, **deltas: int) -> None:
         """Atomically bump counter fields by the given deltas."""
@@ -539,12 +558,13 @@ class LaunchPlan:
                         + int(delta))
 
     def views(self, device: torch.device) -> tuple[list, torch.Tensor]:
-        """In-place views of the inputs and output on ``device``.
+        """The inputs on the host and the output as ``device`` writes it.
 
-        The CPU gets ``torch.from_numpy`` views; a CUDA device gets the
-        arrays page-locked and mapped (once per launch, memoized), each
-        through a page-aligned copy unless it owns its pages
-        (:func:`page_exclusive`); the output's copy is ``out_stage``.
+        The CPU gets ``torch.from_numpy`` views of both. For a CUDA device
+        (once per launch, memoized) the inputs are host tensors to copy
+        from, each over a page-aligned copy unless it owns its pages
+        (:func:`page_exclusive`), and the output is page-locked and
+        mapped, through ``out_stage`` unless it owns its pages.
 
         Returns:
             ``(input_views, out_view)``.
@@ -557,34 +577,65 @@ class LaunchPlan:
                 got = ([torch.from_numpy(np.asarray(a)) for a in self.inputs],
                        torch.from_numpy(self.out))
             else:
-                arrays = [page_exclusive(np.asarray(a)) for a in self.inputs]
+                sources = [torch.from_numpy(page_exclusive(np.asarray(a)))
+                           for a in self.inputs]
                 if not owns_pages(self.out):
                     self.out_stage = page_exclusive(self.out)
-                arrays.append(self.out if self.out_stage is None
-                              else self.out_stage)
-                self._held = arrays   # the views do not keep them alive
-                mapped, waits = [], []
-                for a in arrays:
-                    view, starts = _map_host(a, device, waits=waits)
-                    self._mapped_starts.append(starts)
-                    mapped.append(view)
+                out = self.out if self.out_stage is None else self.out_stage
+                self._held.append(out)  # the view does not keep it alive
+                waits: list = []
+                view, starts = _map_host(out, device, waits=waits)
+                self._mapped_starts.append(starts)
                 self.map_lock_wait_s = (self.map_lock_wait_s or 0.0
                                         ) + sum(waits)
-                got = (mapped[:-1], mapped[-1])
+                got = (sources, view)
             self._views[device.type] = got
             return got
 
+    def broadcast(self, index: int, device: torch.device
+                  ) -> tuple[torch.Tensor, int]:
+        """Input ``index`` whole in ``device``'s memory.
+
+        The first call for the device copies it on the current stream
+        (memoized until :meth:`release`); a call on another stream makes
+        that stream wait for the copy on the device.
+
+        Returns:
+            ``(tensor, copied)``: the copy and the bytes this call copied
+            (0 when an earlier call made it).
+        """
+        with self._copy_lock:
+            got = self._copies.get((index, device))
+            copied = 0
+            if got is None:
+                host = self.views(device)[0][index]
+                tensor = _to_device(host, device)
+                made = torch.cuda.Event()
+                made.record()
+                got = (tensor, made, torch.cuda.current_stream(device))
+                self._copies[(index, device)] = got
+                copied = host.numel() * host.element_size()
+        tensor, made, stream = got
+        current = torch.cuda.current_stream(device)
+        if current != stream:
+            current.wait_event(made)
+            tensor.record_stream(current)
+        return tensor, copied
+
     def release(self) -> Optional[float]:
-        """Drop the views and unmap the host ranges (idempotent).
+        """Drop the views and copies, unmap the host ranges (idempotent).
 
         Returns:
             The seconds the unmapping waited for the lock over mapped
             ranges, or ``None`` if it had nothing to unmap.
         """
+        with self._copy_lock:
+            copies, self._copies = self._copies, {}
         with self._lock:
             held, self._mapped_starts = self._mapped_starts, []
             arrays, self._held = self._held, []
             self._views.clear()
+        del copies
         waits: list = []
         for starts in held:
             _unmap_host(starts, waits=waits)
@@ -832,12 +883,17 @@ class DataPlane:
 class UsmDataPlane(DataPlane):
     """Unified-shared-memory data plane: zero staging copies.
 
-    Every unit computes in place on the launch's host arrays — numpy
-    views on the CPU, mapped page-locked memory on a CUDA unit — and
-    writes its result straight into the launch's output rows, the paper's
-    "collection is free" semantics (Fig. 2b). A halo that runs off the
-    index space is passed as missing rows, never as a zero-filled copy,
-    and no bucket padding is applied (nothing is compiled per shape).
+    Every unit writes its result straight into the launch's output rows,
+    the paper's "collection is free" semantics (Fig. 2b): the CPU through
+    a numpy view, a CUDA unit through mapped page-locked memory. The CPU
+    reads the inputs in place. A CUDA unit reads them from its own
+    memory: each package's rows of a split input are copied there in
+    :meth:`stage`, a broadcast input whole once per launch and device
+    (:meth:`LaunchPlan.broadcast`), on the unit's stream from the
+    pageable host arrays, and the package's ``stage_counts`` carry the
+    bytes copied (``usm_copy_bytes``). A halo that runs off the index
+    space is passed as missing rows, never as zero-filled ones, and no
+    bucket padding is applied (nothing is compiled per shape).
     """
 
     model = MemoryModel.USM
@@ -848,17 +904,27 @@ class UsmDataPlane(DataPlane):
 
     def _stage(self, unit, plan: LaunchPlan, pkg) -> tuple[list, Any]:
         in_views, out_view = plan.views(unit.device)
-        args = []
-        for spec, view in zip(plan.kernel.args, in_views):
+        on_card = unit.device.type != "cpu"
+        args, copied = [], 0
+        for index, (spec, view) in enumerate(zip(plan.kernel.args,
+                                                 in_views)):
             if spec.role is not ArgRole.SPLIT:
+                if on_card:
+                    view, nbytes = plan.broadcast(index, unit.device)
+                    copied += nbytes
                 args.append(view)
                 continue
             lo = pkg.offset - spec.halo
             hi = pkg.offset + pkg.size + spec.halo
             start, stop = max(lo, 0), min(hi, plan.total)
             chunk = view.narrow(spec.axis, start, stop - start)
+            if on_card:
+                chunk = _to_device(chunk, unit.device)
+                copied += chunk.numel() * chunk.element_size()
             args.append(HaloChunk(chunk, start - lo, hi - stop) if spec.halo
                         else chunk)
+        if on_card:
+            pkg.stage_counts = (("usm_copy_bytes", copied),)
         return args, out_view.narrow(0, pkg.offset, pkg.size)
 
     def _collect(self, unit, plan: LaunchPlan, pkg, pending: Pending

@@ -9,9 +9,10 @@ the reference's surface.
 The memory-model semantics are the data plane's
 (:mod:`repro_torch.core.dataplane`):
 
-* USM     — units compute in place on the shared host arrays (mapped
-            page-locked memory on a CUDA unit) and write their slices
-            straight into the host output array; no staging copies.
+* USM     — units write their slices straight into the host output
+            array (mapped page-locked memory on a CUDA unit); the CPU
+            reads the inputs in place, a CUDA unit from copies in its
+            own memory; no staging copies.
 * BUFFERS — each package's inputs are staged into unit buffers and its
             output chunk copied back before the merge (explicit, counted
             copies).

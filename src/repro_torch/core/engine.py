@@ -290,7 +290,7 @@ class RealBackend(Backend):
         # dead-unit guard of elastic membership
         self.loop = None  # guarded-by: caller
         # set by the engine: a launch resolves only once none of its
-        # packages runs on a unit and its arrays are unmapped (settle)
+        # packages runs on a unit and its output is unmapped (settle)
         self.settles = False
         # the unit index of an engine worker's thread (see serve_on)
         self._thread = threading.local()
@@ -426,7 +426,7 @@ class RealBackend(Backend):
 
         def stacked(j: int) -> np.ndarray:
             # zero pad rows past each member's extent; the batch owns its
-            # pages, so USM maps it in place
+            # pages, so USM copies it to a CUDA unit as it stands
             a = np.asarray(first.inputs[j])
             batch = page_aligned_zeros((len(members), bucket, *a.shape[1:]),
                                        a.dtype)
@@ -485,13 +485,13 @@ class RealBackend(Backend):
     def _resolve(self, launch: _Launch, outcome) -> None:
         """Resolve now, or, under an engine, once the launch settles.
 
-        Under USM a CUDA unit reads and writes the launch's arrays
-        through their page-locked mapping, so the caller gets them back
-        only when no package of the launch (a killed unit's zombie
-        included) runs on a unit and the mapping is gone: a copy the
-        caller makes of ``out`` can then never race the unmapping. A
-        fused member's own plan never ran a package: it is released
-        here in any case.
+        Under USM a CUDA unit writes the launch's output through its
+        page-locked mapping and reads device copies of its inputs, so the
+        caller gets them back only when no package of the launch (a
+        killed unit's zombie included) runs on a unit, the copies are
+        freed and the mapping is gone: a copy the caller makes of ``out``
+        can then never race the unmapping. A fused member's own plan
+        never ran a package: it is released here in any case.
         """
         if self.settles and launch.on_units:
             launch.outcome = outcome        # settle() resolves it
@@ -791,10 +791,11 @@ class CoexecEngine:
                              "fresh scheduler per launch")
         if weight <= 0:
             raise ValueError("weight must be positive")
-        # plan time: bind the arrays (USM maps them for CUDA units), then
-        # load the kernel once per unit outside the engine lock, so no
-        # first dispatch charges the library load to a unit's busy clock
-        # — it would otherwise poison the adaptive speed estimates
+        # plan time: bind the arrays (USM maps the output for CUDA
+        # units), then load the kernel once per unit outside the engine
+        # lock, so no first dispatch charges the library load to a unit's
+        # busy clock — it would otherwise poison the adaptive speed
+        # estimates
         plan = self.plane.plan(kernel, inputs, out, scheduler.total,
                                units=self.units)
         try:
@@ -966,9 +967,10 @@ class CoexecEngine:
             launch, pkg = work
             try:
                 # the engine's data plane stages inputs per the memory
-                # model (USM: in-place views, mapped on CUDA; BUFFERS:
-                # pooled per-package copies) and issues the kernel on the
-                # unit's stream; collection happens at retire time.
+                # model (USM: in-place views, device copies of the inputs
+                # and the output mapped on CUDA; BUFFERS: pooled
+                # per-package copies) and issues the kernel on the unit's
+                # stream; collection happens at retire time.
                 out_dev = self.backend.begin(unit_idx, launch, pkg)
             except BaseException as e:
                 self._complete(launch, pkg, error=e)

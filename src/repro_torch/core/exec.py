@@ -57,7 +57,8 @@ class Span:
     the Coexecution Unit whose worker ran it (``None`` on a caller's
     thread) and ``counts`` ``(name, value)`` pairs measured inside it,
     such as ``("lock_wait_s", 0.002)`` where a ``plan`` or ``settle``
-    took the lock over mapped host ranges.
+    took the lock over mapped host ranges, or ``("usm_copy_bytes", n)``
+    on a CUDA unit's ``stage`` under USM.
     """
 
     name: str
@@ -125,9 +126,10 @@ class LaunchStats:
         one's end) come the recorded :attr:`spans`; ``queue``, from the
         launch's admission (the end of ``admit``, else ``total_s`` before
         the last collection) to its first package's issue; and for each
-        package, on its unit, ``stage`` (``t_issue`` to ``t_launch``),
-        ``compute`` (to ``t_complete``) and ``collect`` (to
-        ``t_collected``). The rest is in start order.
+        package, on its unit, ``stage`` (``t_issue`` to ``t_launch``,
+        with the package's ``stage_counts``), ``compute`` (to
+        ``t_complete``) and ``collect`` (to ``t_collected``). The rest is
+        in start order.
         """
         lid = self.launch_id
         spans = list(self.spans)
@@ -139,7 +141,7 @@ class LaunchStats:
                               min(p.t_issue for p in self.packages)))
         for p in self.packages:
             spans += [Span("stage", lid, "launch", p.t_issue, p.t_launch,
-                           unit=p.unit),
+                           unit=p.unit, counts=p.stage_counts),
                       Span("compute", lid, "launch", p.t_launch,
                            p.t_complete, unit=p.unit),
                       Span("collect", lid, "launch", p.t_complete,

@@ -4,10 +4,12 @@ Two strategies, selectable per launch (and combinable — each buffer is
 governed by its own model, as in the paper):
 
 * ``USM``     — one logical allocation shared by all Coexecution Units.
-                In the port this is one host allocation that every unit
-                views in place (the CPU through ``torch.from_numpy``, the
-                GPU through mapped page-locked memory): result collection
-                is free; inputs need no staging copy.
+                In the port this is one host allocation per array. Every
+                unit writes the output in place (the CPU through
+                ``torch.from_numpy``, the GPU through mapped page-locked
+                memory), so result collection is free; the CPU reads the
+                inputs in place, the GPU from copies in its own memory
+                (each package's rows, a broadcast input once a launch).
 * ``BUFFERS`` — per-package disjoint buffers: inputs are staged to the unit
                 (a copy of the slice to the unit) and outputs copied back into
                 the host container. Costs one H2D + one D2H proportional to

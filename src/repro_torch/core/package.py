@@ -56,6 +56,9 @@ class Package:
     t_launch: float = 0.0
     t_complete: float = 0.0
     t_collected: float = 0.0
+    # (name, value) pairs measured while the data plane staged it, such as
+    # ("usm_copy_bytes", n) on a CUDA unit under USM; the stage span's counts
+    stage_counts: tuple = ()
 
     @property
     def offset(self) -> int:

@@ -202,7 +202,7 @@ def coexec_real_rows(spec=None, *, policies=None, units=None,
             [``cuda:0``, ``cpu``], which raises without CUDA).
         on_result: optional ``(policy, request, inputs, output)`` callback
             for every served request's output, in completion order, while
-            later requests may be in flight (a launch's arrays are
+            later requests may be in flight (a launch's output is
             unmapped before its handle resolves, and the arrays the port
             allocates own their pages, so copying them to the card is
             safe under USM).

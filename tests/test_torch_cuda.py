@@ -1011,6 +1011,132 @@ def test_a_usm_launch_settles_on_a_named_unit(dev):
     assert not dataplane._mapped
 
 
+PAPER_KERNELS = ["taylor", "gaussian", "matmul", "mandelbrot", "ray", "rap"]
+
+
+def _unit_kind_rows(stats, units, n):
+    """The device type of the unit that computed each row."""
+    rows = np.empty(n, dtype=object)
+    for p in stats.packages:
+        rows[p.offset:p.offset + p.size] = units[p.unit].device.type
+    return rows
+
+
+@pytest.mark.parametrize("name", PAPER_KERNELS)
+def test_usm_launch_equals_buffers_bit_for_bit(dev, name):
+    """Under ``dynamic`` a USM launch, whose CUDA unit reads device copies
+    of the inputs and writes the mapped output, equals the BUFFERS launch
+    bit for bit on every row the same kind of unit computed in both: on
+    [cuda:0, cpu], and on cuda:0 alone, where the card computes every row
+    and so holds gaussian's halo at both edges of the image."""
+    n = 4099
+    kernel = build_kernel(name)
+    inputs = kernel_demo_inputs(name, n, seed=7)
+    for devices in (["cuda:0", "cpu"], ["cuda:0"]):
+        outs, kinds = {}, {}
+        for memory in ("usm", "buffers"):
+            spec = (CoexecSpec.builder().policy("dynamic").memory(memory)
+                    .build())
+            units = counits_from_devices(devices)
+            with CoexecutorRuntime.from_spec(spec, units=units) as rt:
+                outs[memory] = rt.launch(n, kernel, inputs)
+                kinds[memory] = _unit_kind_rows(rt.last_stats, units, n)
+        same = kinds["usm"] == kinds["buffers"]
+        if devices == ["cuda:0"]:
+            assert same.all()
+        np.testing.assert_array_equal(outs["usm"][same],
+                                      outs["buffers"][same],
+                                      err_msg=str(devices))
+    assert not dataplane._mapped
+
+
+@pytest.mark.parametrize("name", PAPER_KERNELS)
+def test_usm_copy_bytes_count_what_the_card_reads(dev, name):
+    """Each CUDA package's ``stage`` span counts in ``usm_copy_bytes`` its
+    split rows (the halo rows that exist included), and one of them the
+    broadcast inputs whole, once a launch; no CPU package carries the
+    count, and the staging counters stay 0."""
+    n = 4099
+    kernel = build_kernel(name)
+    inputs = kernel.bind(kernel_demo_inputs(name, n, seed=3))
+    broadcast = sum(a.nbytes for arg, a in zip(kernel.args, inputs)
+                    if arg.role is ArgRole.BROADCAST)
+    for policy in ("static", "dyn16"):
+        spec = CoexecSpec.builder().policy(policy).memory("usm").build()
+        units = counits_from_devices(["cuda:0", "cpu"])
+        with CoexecutorRuntime.from_spec(spec, units=units) as rt:
+            rt.launch(n, kernel, inputs)
+            stats = rt.last_stats
+        stage = {(s.unit, s.start): s for s in stats.timeline()
+                 if s.name == "stage"}
+        extra = []
+        for p in stats.packages:
+            got = stage[(p.unit, p.t_issue)].count("usm_copy_bytes", None)
+            if units[p.unit].device.type == "cpu":
+                assert got is None, p
+                continue
+            rows = 0
+            for arg, a in zip(kernel.args, inputs):
+                if arg.role is ArgRole.SPLIT:
+                    lo = max(p.offset - arg.halo, 0)
+                    hi = min(p.offset + p.size + arg.halo, n)
+                    rows += (hi - lo) * (a.nbytes // a.shape[0])
+            extra.append(got - rows)
+        if policy == "static":
+            assert extra, "cuda:0 served no package under static"
+        if extra:
+            assert sorted(extra)[-1] == broadcast
+            assert sum(extra) == broadcast
+        assert stats.data.h2d_copies == stats.data.h2d_bytes == 0
+        assert stats.data.d2h_copies == stats.data.d2h_bytes == 0
+    assert not dataplane._mapped
+
+
+def test_usm_maps_only_the_output_and_frees_its_copies(dev):
+    """While a USM launch is in flight the registry of mapped ranges holds
+    its output's pages alone; once it settles the registry is empty and
+    the card's allocator holds what it held before the launch."""
+    from repro_torch.core import Package, Range
+
+    n = 1 << 14
+    kernel = build_kernel("matmul")
+    inputs = kernel_demo_inputs("matmul", n, seed=2)
+    units = counits_from_devices(["cuda:0", "cpu"])
+    spec = CoexecSpec.builder().policy("dynamic").memory("usm").build()
+    with CoexecutorRuntime.from_spec(spec, units=units) as rt:
+        want = rt.launch(n, kernel, inputs)     # loads the kernel
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    page = dataplane._PAGE
+    out = kernel.alloc_out(n, inputs)
+    lo = out.ctypes.data - out.ctypes.data % page
+    hi = -(-(out.ctypes.data + out.nbytes) // page) * page
+    plane = dataplane.make_plane(MemoryModel.USM)
+    plan = plane.plan(kernel, inputs, out, n, units=units)
+    try:
+        assert {s: v[0] for s, v in dataplane._mapped.items()} == {lo: hi}
+        for i, unit in enumerate(units):
+            pkg = Package(Range(i * n // 2, n // 2), seq=i, unit=i)
+            pkg.t_issue = time.perf_counter()
+            plane.execute(unit, plan, pkg)
+        assert {s: v[0] for s, v in dataplane._mapped.items()} == {lo: hi}
+        assert torch.cuda.memory_allocated(dev) > before    # B's copy
+    finally:
+        plan.release()
+    torch.cuda.synchronize()
+    assert not dataplane._mapped
+    assert torch.cuda.memory_allocated(dev) == before
+    # demo matmul inputs have K = 32; who computed which row of `want`
+    # is not fixed, and the CPU's GEMM sums in another order
+    np.testing.assert_allclose(out, want, rtol=1e-5, atol=32e-6)
+    with CoexecutorRuntime.from_spec(spec, units=units) as rt:
+        h = rt.launch_async(n, kernel, inputs)
+        h.result(timeout=60)
+    torch.cuda.synchronize()
+    assert not dataplane._mapped
+    assert torch.cuda.memory_allocated(dev) == before
+
+
 # -- every model family's reduced model on cuda:0 ----------------------------
 
 FAMILY_ARCHS = ["qwen3-0.6b", "qwen1.5-110b", "h2o-danube3-4b",

@@ -21,7 +21,8 @@ import pytest
 
 from repro_torch.api import CoexecSpec, build_kernel, kernel_demo_inputs
 from repro_torch.core import (CoexecEngine, CoexecutorRuntime, LaunchShed,
-                              Span, counits_from_devices)
+                              LaunchStats, Package, Range, Span,
+                              counits_from_devices)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 MEMORIES = ("usm", "buffers")
@@ -274,6 +275,38 @@ def test_a_span_reads_its_length_and_counts():
     assert s.count("missing") == 0.0
     with pytest.raises(AttributeError):
         s.end = 2.0                                # frozen
+
+
+@pytest.mark.parametrize("name", ["taylor", "gaussian", "matmul",
+                                  "mandelbrot", "ray", "rap"])
+def test_a_usm_launch_on_cpu_units_copies_nothing(name):
+    """CPU units read a USM launch's arrays in place: no span carries
+    ``usm_copy_bytes`` and no staging copy is counted."""
+    kernel = build_kernel(name)
+    with runtime("usm") as rt:
+        h = rt.launch_async(1024, kernel,
+                            kernel_demo_inputs(name, 1024, seed=4))
+        h.result(timeout=60)
+    assert all(s.count("usm_copy_bytes", None) is None
+               for s in h.stats.timeline())
+    assert all(p.stage_counts == () for p in h.stats.packages)
+    data = h.stats.data
+    assert (data.h2d_copies, data.h2d_bytes, data.d2h_copies,
+            data.d2h_bytes) == (0, 0, 0, 0)
+    assert data.dispatches == h.stats.num_packages
+
+
+def test_a_stage_span_carries_its_package_counts():
+    pkg = Package(Range(0, 8), seq=0, unit=0, t_issue=1.0, t_launch=1.5,
+                  t_complete=2.0, t_collected=2.5,
+                  stage_counts=(("usm_copy_bytes", 96),))
+    stats = LaunchStats(total_s=1.5, packages=[pkg], unit_busy_s={},
+                        launch_id=7)
+    stage, = [s for s in stats.timeline() if s.name == "stage"]
+    assert (stage.start, stage.end) == (1.0, 1.5)
+    assert stage.count("usm_copy_bytes") == 96
+    compute, = [s for s in stats.timeline() if s.name == "compute"]
+    assert compute.counts == ()
 
 
 def test_the_control_plane_still_reads_no_clock():
