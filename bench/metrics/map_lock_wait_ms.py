@@ -4,6 +4,10 @@ mapped host ranges (their ``lock_wait_s`` counts), over the launches
 that took it (none on CPU units alone)."""
 from bench.harness import idle
 
+# CPU units map no host range, so no launch takes the mapping lock and no
+# plan or settle carries a lock_wait_s count
+CPU_READS = False
+
 
 def read(run):
     waits = []

@@ -1,6 +1,6 @@
 """plan_ms (runtime and engine): the mean ``plan`` span over the window's
 launches: from ``launch_async``'s entry (scheduler, output) through the
-data plane's plan (USM: page-locking and mapping A, B and C) and the
+data plane's plan (USM: page-locking and mapping the output C) and the
 kernel's pre-warm, to the engine's admission."""
 from bench.harness import idle
 

@@ -35,22 +35,23 @@ def cuda_card():
     return "cuda"
 
 
-def benchmark() -> dict:
-    """``BENCHMARK.json``."""
-    return json.loads((ROOT / "BENCHMARK.json").read_text())
+def benchmark(root: pathlib.Path = ROOT) -> dict:
+    """``BENCHMARK.json`` of the checkout at ``root``."""
+    return json.loads((root / "BENCHMARK.json").read_text())
 
 
-def cell_names() -> list:
+def cell_names(root: pathlib.Path = ROOT) -> list:
     """Every cell of ``BENCHMARK.json``."""
-    return [w["name"] for w in benchmark()["workloads"]]
+    return [w["name"] for w in benchmark(root)["workloads"]]
 
 
-def small_cell(name: str):
+def small_cell(name: str, root: pathlib.Path = ROOT):
     """The cell ``name`` with its configuration cut to the size its file
-    gives a test run (``test_size``); every other key as run."""
+    gives a test run (``test_size``, which may also set ``dtype`` and a
+    ``check`` no looser than the card's); every other key as run."""
     from bench.harness import spec
 
-    cell = spec.load_cell(name, ROOT)
+    cell = spec.load_cell(name, root)
     cell.config.update(cell.config["test_size"])
     return cell
 
@@ -61,11 +62,12 @@ def cpu_devices(cell) -> list:
 
 
 def run_small(name: str, *, trace: bool = False, seed: int = 2**31 + 7,
-              devices=None, make_system=None, seconds: float = 0.3):
+              devices=None, make_system=None, seconds: float = 0.3,
+              root: pathlib.Path = ROOT):
     """One run of the cell at its small size (on the CPU by default)."""
     from bench.harness import runner
 
-    cell = small_cell(name)
+    cell = small_cell(name, root)
     return runner.run(cell, seed, seconds, trace,
                       setup_t0=time.perf_counter(),
                       devices=devices or cpu_devices(cell),

@@ -15,13 +15,13 @@ NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 
 
-def bench():
-    with open(ROOT / "BENCHMARK.json") as f:
+def bench(root=ROOT):
+    with open(root / "BENCHMARK.json") as f:
         return json.load(f)
 
 
-def test_benchmark_keys_and_names():
-    b = bench()
+def test_benchmark_keys_and_names(root=ROOT):
+    b = bench(root)
     assert set(b) == {"command", "paths", "run_seconds", "configs",
                       "workloads", "end_to_end", "per_layer"}
     assert 1 <= b["run_seconds"] <= 51
@@ -48,15 +48,15 @@ def test_benchmark_keys_and_names():
         assert m["moves"] in e2e
 
 
-def test_every_cell_loads_with_its_files():
+def test_every_cell_loads_with_its_files(root=ROOT):
     from bench.harness import spec
 
-    b = bench()
+    b = bench(root)
     used = set()
     for w in b["workloads"]:
-        cell = spec.load_cell(w["name"], ROOT)
+        cell = spec.load_cell(w["name"], root)
         used.add(w["config"])
-        assert cell.chips == 1
+        assert cell.chips in (1, 4)
         for kind in ("inputs", "reference", "work"):
             assert cell.module(kind) is not None
         assert hasattr(cell.system(), "System")
@@ -68,14 +68,21 @@ def test_every_cell_loads_with_its_files():
         assert len(cell.end_to_end) >= 2 and cell.per_layer
         assert set(cell.config["check"]) and all(
             v is not None for v in cell.config["check"].values())
+        # a CPU run compares every number the card does, never looser
+        small = cell.config["test_size"].get("check", cell.config["check"])
+        assert set(small) == set(cell.config["check"])
+        assert all(small[k] <= cell.config["check"][k] for k in small)
     assert used == {c["name"] for c in b["configs"]}
+    # four cards only for a quarter of the cells, rounded down, or one
+    four = sum(w["chips"] == 4 for w in b["workloads"])
+    assert four <= max(len(b["workloads"]) // 4, 1)
 
 
-def test_config_files_lie_under_paths_and_list_their_cuts():
-    b = bench()
+def test_config_files_lie_under_paths_and_list_their_cuts(root=ROOT):
+    b = bench(root)
     for c in b["configs"]:
         assert any(c["file"].startswith(p + "/") for p in b["paths"])
-        with open(ROOT / c["file"]) as f:
+        with open(root / c["file"]) as f:
             data = json.load(f)
         assert data["name"] == c["name"] and data["reduced"] == c["reduced"]
         assert data["assumed"]
