@@ -5,7 +5,7 @@ import importlib
 _MODULES = [
     "minicpm_2b", "qwen3_0_6b", "qwen1_5_110b", "h2o_danube3_4b",
     "qwen3_moe_235b_a22b", "phi3_5_moe", "whisper_medium",
-    "xlstm_1_3b", "zamba2_7b", "internvl2_1b",
+    "xlstm_1_3b", "zamba2_7b", "internvl2_1b", "zamba2_7b_instruct",
 ]
 
 _loaded = False
@@ -20,9 +20,12 @@ def _load_all() -> None:
     _loaded = True
 
 
-from .base import (ModelConfig, ShapeConfig, SHAPES, all_configs,  # noqa: E402
-                   get_config, register)
+from .base import (ModelConfig, ShapeConfig, SHAPES,  # noqa: E402
+                   Zamba2Config, all_configs, get_config, register)
 
+# the assigned architectures, each held against the reference package's;
+# zamba2-7b-instruct (the published Zamba2 layout) is registered beside
+# them and the reference package has no such model
 ARCH_IDS = [
     "minicpm-2b", "qwen3-0.6b", "qwen1.5-110b", "h2o-danube3-4b",
     "qwen3-moe-235b-a22b", "phi3.5-moe-42b-a6.6b", "whisper-medium",
@@ -30,4 +33,4 @@ ARCH_IDS = [
 ]
 
 __all__ = ["ARCH_IDS", "ModelConfig", "SHAPES", "ShapeConfig",
-           "all_configs", "get_config", "register"]
+           "Zamba2Config", "all_configs", "get_config", "register"]

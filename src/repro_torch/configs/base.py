@@ -136,6 +136,38 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class Zamba2Config(ModelConfig):
+    """The published Zamba2 layout (``models.model`` builds it), where the
+    port's ``zamba2-7b`` is a Zamba-like stand-in on :class:`ModelConfig`.
+
+    Mamba-2 layers throughout (expand 2), B and C shared within
+    ``mamba_ngroups`` groups of heads and the gate taken before the
+    output norm; before the Mamba layer at each of ``hybrid_layer_ids``
+    one of ``num_mem_blocks`` shared attention + MLP blocks runs, the
+    blocks in turn, over [residual ; embedding] (2 d_model wide, heads of
+    ``head_dim`` with RoPE, scores scaled by (head_dim / 2)^-1/2), with a
+    rank ``adapter_rank`` LoRA on its MLP's gate and up projections and a
+    linear into the Mamba layer's input, both one per application. A
+    subclass rather than new fields of :class:`ModelConfig`, whose fields
+    are held equal to the reference package's config.
+    """
+
+    hybrid_layer_ids: tuple = ()
+    num_mem_blocks: int = 2
+    adapter_rank: int = 128
+    mamba_ngroups: int = 2
+
+    def reduced(self) -> "Zamba2Config":
+        """A tiny config of the same layout for CPU tests: 8 layers, 3
+        hybrid applications (both blocks, one of them twice), 2 groups."""
+        return dataclasses.replace(
+            self, num_layers=8, d_model=64, num_heads=4, num_kv_heads=4,
+            head_dim=32, d_ff=96, vocab_size=256, ssm_state=16,
+            ssm_head_dim=16, hybrid_layer_ids=(1, 4, 6), adapter_rank=8,
+            remat=False)
+
+
+@dataclasses.dataclass(frozen=True)
 class ShapeConfig:
     name: str
     seq_len: int

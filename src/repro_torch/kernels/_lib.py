@@ -46,9 +46,10 @@ SIGNATURES = {
     # q, k, v, out, B, Hq, Hkv, T, D, causal, window (0: none), scale
     "flash_attention_f32": (_P, _P, _P, _P, *(_I,) * 7, _F, _P),
     "flash_attention_bf16": (_P, _P, _P, _P, *(_I,) * 7, _F, _P),
-    # q, k, v, log_decay, out, BH, T, Dk, Dv (bf16: then the Dv tile)
-    "linear_attention_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "linear_attention_bf16": (_P, _P, _P, _P, _P, *(_I,) * 5, _P),
+    # q, k, v, log_decay, out, final state (null: none), BH, T, Dk, Dv
+    # (bf16: then the Dv tile)
+    "linear_attention_f32": (*(_P,) * 6, _I, _I, _I, _I, _P),
+    "linear_attention_bf16": (*(_P,) * 6, *(_I,) * 5, _P),
     # q, k, v, log_decay, scores scratch, out, BH, T, Dk, Dv, bf16
     "linear_attention_wide": (_P, _P, _P, _P, _P, _P, *(_I,) * 5, _P),
     "host_register_mapped": (_P, _LL),

@@ -5,8 +5,10 @@
 // `flash_attention` (body `_flash_kernel`). q is (B, Hq, T, D); k and v are
 // (B, Hkv, T, D) with Hq a multiple of Hkv (q head h reads kv head
 // h / (Hq / Hkv)); all three f32 or all three bf16; out is (B, Hq, T, D) in
-// q's type. D <= 128. Query i attends to key j when j < T, j <= i if
-// causal, and i - j < window if a window is given. The TPU kernel pads T
+// q's type. D <= 128 in f32, D <= 224 in bf16; the scores are scaled by the
+// caller's `scale` (D^-1/2 unless the model says otherwise). Query i
+// attends to key j when j < T, j <= i if causal, and i - j < window if a
+// window is given. The TPU kernel pads T
 // up to a block multiple with zero keys and lets the mask drop them;
 // without a causal mask it does not, so padded keys are attended. Here
 // keys at j >= T never count. A row with no reachable key (only possible
@@ -27,7 +29,7 @@
 // not a multiple of 8) into a double-buffered ring in shared memory, the
 // next tile in flight while this one computes. S =
 // Q K^T comes from `ldmatrix` of K rows (K is the "col" B operand as it
-// lies); S stays in registers, is scaled by D^-1/2 in f32, masked, and
+// lies); S stays in registers, is scaled by `scale` in f32, masked, and
 // drives the f32 online softmax; P is rounded to bf16 and re-packed in
 // registers as the A fragment of O += P V, with V read by
 // `ldmatrix.trans`. The row sum l adds the bf16-rounded P, so the weights
@@ -38,7 +40,13 @@
 // function: bf16 x bf16 products are exact in f32, so S differs only by
 // the order of f32 sums; the one real change is P in bf16 before P V
 // (relative 2^-9 per weight). Causal grids start with the heaviest query
-// tiles. What `wgmma` would add (a later design): 64-row warpgroup
+// tiles. Head dims 129-224 (Zamba2-7B-Instruct's shared attention, D 224
+// over its 7168-wide [residual, embedding] input) take one more
+// instantiation, 224 columns padded like the others: its O accumulators
+// alone are 112 registers a thread, so the Q tile's A fragments are read
+// from shared memory at each key tile (`ldmatrix`, 14 a tile and warp)
+// instead of held, and its 148 KB of shared memory leave one block an SM.
+// What `wgmma` would add (a later design): 64-row warpgroup
 // products issued asynchronously from shared memory, TMA loads and a
 // producer warp, for the rest of the way to the 989 TFLOP/s peak.
 //
@@ -236,10 +244,11 @@ using namespace ::tc;
 constexpr int BQ = 64;              // queries per block, 16 per warp
 constexpr int BKV = 64;             // keys per tile
 constexpr int THREADS = 128;        // 4 warps
+constexpr int DMAX_TC = 224;        // the widest head dim of this path
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int DP>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, DP <= DMAX ? 2 : 1)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, bf16* __restrict__ out, int Hq,
                 int Hkv, int T, int D, int causal, int window, float scale,
@@ -248,6 +257,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int KC = DP / 16;       // 16-wide head-dim chunks (QK^T depth)
   constexpr int NB = BKV / 8;       // 8-key blocks of S
   constexpr int DB = DP / 8;        // 8-wide blocks of O
+  constexpr bool QREG = DP <= DMAX; // Q's A fragments held in registers
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // [BQ][LD]
   bf16* Ks = Qs + BQ * LD;                        // [2][BKV][LD]
@@ -283,7 +293,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const float sl2 = scale * LOG2E;  // exp(x * scale) = exp2(x * sl2)
   const int row_a = q0 + warp * 16 + g, row_b = row_a + 8;
-  uint32_t qf[KC][4];
+  uint32_t qf[QREG ? KC : 1][4];
   float o[DB][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
 #pragma unroll
   for (int d = 0; d < DB; ++d)
@@ -304,11 +314,13 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (t == t_first) {
+    if constexpr (QREG) {
+      if (t == t_first) {
 #pragma unroll
-      for (int kc = 0; kc < KC; ++kc)
-        ldsm_x4(qf[kc], Qs + (warp * 16 + lane % 16) * LD + kc * 16 +
-                            (lane / 16) * 8);
+        for (int kc = 0; kc < KC; ++kc)
+          ldsm_x4(qf[kc], Qs + (warp * 16 + lane % 16) * LD + kc * 16 +
+                              (lane / 16) * 8);
+      }
     }
     const bf16* Kt = Ks + buf * BKV * LD;
     const bf16* Vt = Vs + buf * BKV * LD;
@@ -323,13 +335,21 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // MMAs apart, so the tensor pipe does not wait on their latency
 #pragma unroll
     for (int kc = 0; kc < KC; ++kc) {
+      uint32_t qa[4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kc][e];
+      } else {
+        ldsm_x4(qa, Qs + (warp * 16 + lane % 16) * LD + kc * 16 +
+                        (lane / 16) * 8);
+      }
 #pragma unroll
       for (int n2 = 0; n2 < NB / 2; ++n2) {
         uint32_t r[4];
         ldsm_x4(r, Kt + (n2 * 16 + lane % 8 + 8 * (lane / 16)) * LD +
                        kc * 16 + 8 * ((lane / 8) % 2));
-        mma(s[2 * n2], qf[kc], r[0], r[1]);
-        mma(s[2 * n2 + 1], qf[kc], r[2], r[3]);
+        mma(s[2 * n2], qa, r[0], r[1]);
+        mma(s[2 * n2 + 1], qa, r[2], r[3]);
       }
     }
 
@@ -454,12 +474,12 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B,
              int Hq, int Hkv, int T, int D, int causal, int window,
              float scale, void* stream) {
   if (B <= 0 || T <= 0) return 0;
-  if (D < 1 || D > DMAX || Hkv < 1 || Hq % Hkv != 0)
+  if (D < 1 || D > DMAX_TC || Hkv < 1 || Hq % Hkv != 0)
     return (int)cudaErrorInvalidValue;
   const bf16 *Q = (const bf16*)q, *K = (const bf16*)k, *V = (const bf16*)v;
   bf16* O = (bf16*)out;
   cudaStream_t s = (cudaStream_t)stream;
-  // head dim padded to a multiple of 16
+  // head dim padded to a multiple of 16 up to 128, else to 224
 #define FLASH_TC(DP) \
   launch<DP>(Q, K, V, O, B, Hq, Hkv, T, D, causal, window, scale, s)
   switch ((D + 15) / 16) {
@@ -470,7 +490,8 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B,
     case 5: return FLASH_TC(80);
     case 6: return FLASH_TC(96);
     case 7: return FLASH_TC(112);
-    default: return FLASH_TC(128);
+    case 8: return FLASH_TC(128);
+    default: return FLASH_TC(224);
   }
 #undef FLASH_TC
 }

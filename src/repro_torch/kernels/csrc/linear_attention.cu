@@ -5,9 +5,12 @@
 // `linear_attention` (body `_gla_kernel`). Per head: S_t = exp(ld_t) S_{t-1}
 // + k_t^T v_t and o_t = q_t S_t, for q, k (BH, T, Dk), v (BH, T, Dv) (all f32
 // or all bf16), log-decays ld (BH, T) f32 (entries <= 0); out (BH, T, Dv) in
-// q's type. Dk <= 1024, any Dv. The TPU kernel carries S in scratch across a
-// sequential grid axis; blocks here run in no order, so one block owns a
-// (head, Dv tile) and walks the chunks itself with S on chip. Per chunk of
+// q's type. Dk <= 1024, any Dv. On the Dk <= 128 paths an optional `state`
+// (BH, Dk, Dv) f32 receives each head's S after the last step (a prefill
+// hands it to decode), written from the f32 state the block carried. The
+// TPU kernel carries S in scratch across a sequential grid axis; blocks
+// here run in no order, so one block owns a (head, Dv tile) and walks the
+// chunks itself with S on chip. Per chunk of
 // C = 64 steps (padded steps take log-decay 0 and zero q, k, v, which
 // leaves the recurrence as it was):
 //   cum_i = sum_{t<=i} ld_t (a warp scan), total = cum_{C-1};
@@ -196,7 +199,8 @@ linear_attention_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
                         const float* __restrict__ v,
                         const float* __restrict__ log_decay,
-                        float* __restrict__ out, int seq, int Dk, int Dv) {
+                        float* __restrict__ out, float* __restrict__ state,
+                        int seq, int Dk, int Dv) {
   extern __shared__ float smem[];
   const int ldk = Dk | 1;
   const int lda = C + 1;
@@ -379,11 +383,19 @@ linear_attention_kernel(const float* __restrict__ q,
     }
     __syncthreads();                   // S is whole before the next chunk
   }
+
+  if (state != nullptr) {              // the block's columns of S
+    float* sh = state + (long long)bh * Dk * Dv + dv0;
+    for (int i = tid; i < Dk * DVT; i += THREADS) {
+      const int d = i / DVT, c = i - d * DVT;
+      if (dv0 + c < Dv) sh[(long long)d * Dv + c] = S[i];
+    }
+  }
 }
 
 int launch_f32(const void* q, const void* k, const void* v,
-               const void* log_decay, void* out, int BH, int seq, int Dk,
-               int Dv, void* stream) {
+               const void* log_decay, void* out, void* state, int BH,
+               int seq, int Dk, int Dv, void* stream) {
   if (BH <= 0 || seq <= 0 || Dv <= 0) return 0;
   if (Dk < 1 || Dk > DKMAX) return (int)cudaErrorInvalidValue;
   const int ldk = Dk | 1;
@@ -400,7 +412,7 @@ int launch_f32(const void* q, const void* k, const void* v,
   const dim3 grid((Dv + DVT - 1) / DVT, BH);
   linear_attention_kernel<<<grid, THREADS, bytes, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k, (const float*)v,
-      (const float*)log_decay, (float*)out, seq, Dk, Dv);
+      (const float*)log_decay, (float*)out, (float*)state, seq, Dk, Dv);
   return (int)cudaGetLastError();
 }
 
@@ -427,7 +439,7 @@ __global__ void __launch_bounds__(THREADS)
 linear_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v,
                  const float* __restrict__ log_decay, bf16* __restrict__ out,
-                 int T, int Dk, int Dv, int vec) {
+                 float* __restrict__ state, int T, int Dk, int Dv, int vec) {
   constexpr int LDK = DKP + 8;      // ldmatrix's 8 rows in distinct banks
   constexpr int LDV = DVT + 8;
   constexpr int KC = DKP / 16;      // 16-deep chunks of Q K^T and Q S
@@ -677,11 +689,33 @@ linear_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
   }
+
+  if (state != nullptr) {           // this warp's rows of the f32 S
+    float* sh = state + (long long)bh * Dk * Dv + dv0;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int m0 = 16 * (warp + WARPS * mt);
+      if (m0 >= DKP) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + g + 8 * h;
+        if (row >= Dk) continue;
+#pragma unroll
+        for (int d = 0; d < VB; ++d) {
+          const int col = d * 8 + 2 * t4;
+          if (col < vcols) sh[(long long)row * Dv + col] = sf[mt][d][2 * h];
+          if (col + 1 < vcols)
+            sh[(long long)row * Dv + col + 1] = sf[mt][d][2 * h + 1];
+        }
+      }
+    }
+  }
 }
 
 template <int DKP, int DVT>
 int launch(const bf16* q, const bf16* k, const bf16* v, const float* ld,
-           bf16* out, int BH, int T, int Dk, int Dv, cudaStream_t stream) {
+           bf16* out, float* state, int BH, int T, int Dk, int Dv,
+           cudaStream_t stream) {
   constexpr int bytes =
       (int)sizeof(bf16) * (2 * C * (2 * (DKP + 8) + DVT + 8) +
                            2 * DKP * (DVT + 8)) +
@@ -694,13 +728,13 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const float* ld,
                   (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) & 15) == 0;
   const dim3 grid((Dv + DVT - 1) / DVT, BH);
   linear_tc_kernel<DKP, DVT><<<grid, THREADS, bytes, stream>>>(
-      q, k, v, ld, out, T, Dk, Dv, vec);
+      q, k, v, ld, out, state, T, Dk, Dv, vec);
   return (int)cudaGetLastError();
 }
 
 int dispatch(const void* q, const void* k, const void* v,
-             const void* log_decay, void* out, int BH, int T, int Dk, int Dv,
-             int dv_tile, void* stream) {
+             const void* log_decay, void* out, void* state, int BH, int T,
+             int Dk, int Dv, int dv_tile, void* stream) {
   if (BH <= 0 || T <= 0 || Dv <= 0) return 0;
   if (Dk < 1 || Dk > DKMAX || (dv_tile != 32 && dv_tile != 64) ||
       (Dk > 64 && dv_tile != 32))
@@ -708,8 +742,10 @@ int dispatch(const void* q, const void* k, const void* v,
   const bf16 *Q = (const bf16*)q, *K = (const bf16*)k, *V = (const bf16*)v;
   const float* L = (const float*)log_decay;
   bf16* O = (bf16*)out;
+  float* S = (float*)state;
   cudaStream_t s = (cudaStream_t)stream;
-#define LINEAR_TC(DKP, DVT) launch<DKP, DVT>(Q, K, V, L, O, BH, T, Dk, Dv, s)
+#define LINEAR_TC(DKP, DVT) \
+  launch<DKP, DVT>(Q, K, V, L, O, S, BH, T, Dk, Dv, s)
   if (Dk > 64) return LINEAR_TC(128, 32);
   if (Dk > 32) return dv_tile == 64 ? LINEAR_TC(64, 64) : LINEAR_TC(64, 32);
   return dv_tile == 64 ? LINEAR_TC(32, 64) : LINEAR_TC(32, 32);
@@ -1410,19 +1446,21 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const float* ld,
 
 }  // namespace
 
+// `state`: null, or a (BH, Dk, Dv) f32 output for each head's final S.
 extern "C" int linear_attention_f32(const void* q, const void* k,
                                     const void* v, const void* log_decay,
-                                    void* out, int BH, int seq, int Dk,
-                                    int Dv, void* stream) {
-  return launch_f32(q, k, v, log_decay, out, BH, seq, Dk, Dv, stream);
+                                    void* out, void* state, int BH, int seq,
+                                    int Dk, int Dv, void* stream) {
+  return launch_f32(q, k, v, log_decay, out, state, BH, seq, Dk, Dv, stream);
 }
 
 extern "C" int linear_attention_bf16(const void* q, const void* k,
                                      const void* v, const void* log_decay,
-                                     void* out, int BH, int seq, int Dk,
-                                     int Dv, int dv_tile, void* stream) {
-  return tensor_core::dispatch(q, k, v, log_decay, out, BH, seq, Dk, Dv,
-                               dv_tile, stream);
+                                     void* out, void* state, int BH, int seq,
+                                     int Dk, int Dv, int dv_tile,
+                                     void* stream) {
+  return tensor_core::dispatch(q, k, v, log_decay, out, state, BH, seq, Dk,
+                               Dv, dv_tile, stream);
 }
 
 // Dk in (128, 1024], f32 or bf16 (`bf16` != 0), with `scores` a (BH,

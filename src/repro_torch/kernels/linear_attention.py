@@ -10,7 +10,10 @@ kernel ``repro/kernels/linear_attention.py`` ``linear_attention`` (body
     S_t = exp(ld_t) S_{t-1} + k_t^T v_t,    o_t = q_t S_t,
 
 per head, in f32, with the output in q's dtype. q, k: (BH, T, Dk); v:
-(BH, T, Dv); log_decay: (BH, T) f32 with entries <= 0.
+(BH, T, Dv); log_decay: (BH, T) f32 with entries <= 0. With
+``return_final_state`` both also return S_T, (BH, Dk, Dv) f32, the state a
+prefill hands to decode; the kernel writes it from the f32 state it
+carried (the Dk <= 128 paths; the wide path refuses it).
 
 The kernel computes the same recurrence in chunks of 64 steps (the
 chunk-parallel form), so it sums in another order: in f32 (CUDA cores)
@@ -89,10 +92,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def linear_attention_plain(q: torch.Tensor, k: torch.Tensor,
-                           v: torch.Tensor,
-                           log_decay: torch.Tensor) -> torch.Tensor:
+                           v: torch.Tensor, log_decay: torch.Tensor, *,
+                           return_final_state: bool = False):
     """The exact sequential recurrence in plain PyTorch (any device): one
-    step per time index over a (BH, Dk, Dv) f32 state."""
+    step per time index over a (BH, Dk, Dv) f32 state; with
+    ``return_final_state`` also that state after the last step."""
     _check(q, k, v, log_decay)
     BH, T, Dk = q.shape
     qf, kf, vf = q.float(), k.float(), v.float()
@@ -105,6 +109,8 @@ def linear_attention_plain(q: torch.Tensor, k: torch.Tensor,
         S = decay[:, t, None, None] * S + \
             kf[:, t, :, None] * vf[:, t, None, :]
         out[:, t] = torch.einsum("bk,bkv->bv", qf[:, t], S)
+    if return_final_state:
+        return out.to(q.dtype), S
     return out.to(q.dtype)
 
 
@@ -215,21 +221,26 @@ def chunked_linear_attention(q: torch.Tensor, k: torch.Tensor,
 
 
 def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     log_decay: torch.Tensor) -> torch.Tensor:
+                     log_decay: torch.Tensor, *,
+                     return_final_state: bool = False):
     """Chunked gated linear attention.
 
     Args:
         q, k: (BH, T, Dk) float32 or bfloat16.
         v: (BH, T, Dv) of q's dtype.
         log_decay: (BH, T) float32, entries <= 0.
+        return_final_state: also return each head's state after the last
+            step.
 
     Returns:
-        (BH, T, Dv) in q's dtype.
+        (BH, T, Dv) in q's dtype; with ``return_final_state`` the pair of
+        it and the (BH, Dk, Dv) f32 final state.
 
     Raises:
         ValueError: shape, dtype, device or contiguity the kernel does not
-            take (on CUDA also Dk > 1024); an input that requires grad
-            while grad mode is on, on every device (no backward).
+            take (on CUDA also Dk > 1024, or ``return_final_state`` with
+            Dk > 128); an input that requires grad while grad mode is on,
+            on every device (no backward).
         RuntimeError: the launch was refused.
     """
     _check(q, k, v, log_decay)
@@ -238,20 +249,29 @@ def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      'linear_attention_plain, mixer_impl="ref"', q, k, v,
                      log_decay)
     if q.device.type == "cpu":
-        return linear_attention_plain(q, k, v, log_decay)
+        return linear_attention_plain(q, k, v, log_decay,
+                                      return_final_state=return_final_state)
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"linear_attention: expects float32 or bfloat16, "
                          f"got {q.dtype}")
     BH, T, Dk = q.shape
     if Dk > WIDE_KEY_DIM:
         raise ValueError(f"linear_attention: key dim {Dk} > {WIDE_KEY_DIM}")
+    if return_final_state and Dk > MAX_KEY_DIM:
+        raise ValueError(f"linear_attention: the final state is returned "
+                         f"for key dims up to {MAX_KEY_DIM}, got {Dk}")
     out = torch.empty(BH, T, v.shape[-1], dtype=q.dtype, device=q.device)
+    state = None
+    if return_final_state:
+        state = (torch.zeros if T == 0 else torch.empty)(
+            BH, Dk, v.shape[-1], dtype=torch.float32, device=q.device)
     _lib.require_cuda("linear_attention", (q, q.dtype), (k, q.dtype),
                       (v, q.dtype), (log_decay, torch.float32),
                       (out, q.dtype))
     lib = _lib.library()
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), log_decay.data_ptr())
-    args = (*ptrs, out.data_ptr(), BH, T, Dk, v.shape[-1])
+    args = (*ptrs, out.data_ptr(), None if state is None else state.data_ptr(),
+            BH, T, Dk, v.shape[-1])
     if Dk > MAX_KEY_DIM:
         scores = torch.empty(BH, -(-T // CHUNK), CHUNK, CHUNK,
                              dtype=torch.float32, device=q.device)
@@ -265,7 +285,7 @@ def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             *args, dv_tile_for(Dk, v.shape[-1]), _lib.stream_of(q))
     _lib.check(err, "linear_attention")
     linear_attention.launches += 1
-    return out
+    return (out, state) if return_final_state else out
 
 
 linear_attention.launches = 0

@@ -10,6 +10,11 @@ caller asks for ``cpu``).
 
     python -m repro_torch.launch.serve --arch qwen3-0.6b --device cpu
 
+:func:`serve_batch` serves one batch through a model whose ``prefill``
+runs the prompt through the kernels into its caches (the published Zamba2
+layout, ``zamba2-7b-instruct``): the prefill, then decode steps on given
+tokens, with the launch's spans.
+
 Co-execution mode: each "request" is one data-parallel kernel launch
 served through ``CoexecutorRuntime.launch_async`` on a long-lived engine
 over [``cuda:0``, ``cpu``] — up to ``--concurrent`` launches interleave on
@@ -40,6 +45,7 @@ from __future__ import annotations
 
 import argparse
 import time
+from typing import Optional
 
 import torch
 
@@ -79,7 +85,7 @@ def serve_lm(model: Model, params, *, requests: int, batch: int,
         prompts = torch.randint(0, cfg.vocab_size, (B, P),
                                 generator=gen).to(device)
         cache = model.init_cache(B, P + G, device=device)
-        if model.prefill is not None:
+        if cfg.family == "encdec":
             frames = torch.zeros(B, cfg.encoder_seq, cfg.d_model,
                                  dtype=torch.bfloat16, device=device)
             cache = model.prefill(params, {"tokens": prompts,
@@ -95,6 +101,68 @@ def serve_lm(model: Model, params, *, requests: int, batch: int,
         served += n
     return {"requests": served, "tokens": served * (P + G),
             "seconds": time.perf_counter() - t0}
+
+
+def serve_batch(model: Model, params, prompts: torch.Tensor,
+                forced: torch.Tensor, *, launch: Optional[int] = None
+                ) -> tuple[torch.Tensor, list]:
+    """One batch: the prompts prefilled through the model's kernels into
+    fresh caches, then one decode step a forced token.
+
+    Starts from empty caches and keeps nothing between calls. The model's
+    ``prefill`` returns the last prompt position's logits and the filled
+    caches (``{"attn": [K/V rings], "mamba": [SSD state and conv
+    buffer]}``, as the published Zamba2 layout's do); the K/V rings take
+    the embedding table's dtype, which is that model's residual stream's.
+
+    Args:
+        model: the built model; ``params`` its parameters on the prompts'
+            device.
+        prompts: (B, P) token ids.
+        forced: (B, G) token ids fed to the G decode steps in turn.
+        launch: the launch's id on its spans.
+
+    Returns:
+        The f32 logits (B, G + 1, vocab) at positions P - 1 .. P + G - 1,
+        and the launch's :class:`repro_torch.core.Span` s, the root first:
+        ``launch`` (counts ``kv_cache_bytes``, ``ssm_state_bytes``: the
+        K/V rings' and the Mamba layers' state and conv buffers' bytes),
+        ``prefill`` (``tokens`` B P) and ``decode`` (``steps`` G,
+        ``tokens`` B G). Each phase ends at one device synchronize, and
+        none runs inside a phase.
+    """
+    from ..core import Span
+
+    B, P = prompts.shape
+    G = forced.shape[1]
+    device = prompts.device
+
+    def settled() -> float:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return time.perf_counter()
+
+    t0 = time.perf_counter()
+    cache = model.init_cache(B, P + G, device=device,
+                             dtype=params["embed"]["table"].dtype)
+    kv = sum(c[n].nbytes for c in cache["attn"] for n in ("k", "v"))
+    ssm = sum(t.nbytes for c in cache["mamba"] for t in c.values())
+    t1 = time.perf_counter()
+    last, cache = model.prefill(params, {"tokens": prompts}, cache)
+    t2 = settled()
+    logits = [last]
+    for i in range(G):
+        step, cache = model.decode_step(params, forced[:, i:i + 1], cache)
+        logits.append(step)
+    logits = torch.stack(logits, dim=1)
+    t3 = settled()
+    return logits, [
+        Span("launch", launch, None, t0, t3,
+             counts=(("kv_cache_bytes", kv), ("ssm_state_bytes", ssm))),
+        Span("prefill", launch, "launch", t1, t2,
+             counts=(("tokens", B * P),)),
+        Span("decode", launch, "launch", t2, t3,
+             counts=(("steps", G), ("tokens", B * G)))]
 
 
 def _percentile_ms(sorted_s: list, q: float) -> float:

@@ -9,6 +9,10 @@ the whole key sequence, differentiable, never the (T, T) logits at once;
 what the dry run traces full configs with). Decode
 (:func:`attention_decode`) always uses the einsum path against the cache,
 as the reference does (one query position; no kernel).
+:func:`attention_prefill` runs a prompt through the same path as training
+and writes its keys and values into the decode cache. Scores are scaled by
+``scale``, head_dim^-1/2 unless the model gives another (Zamba2-7B-
+Instruct: (head_dim / 2)^-1/2).
 """
 from __future__ import annotations
 
@@ -73,7 +77,8 @@ def _project_qkv(p: Params, x: torch.Tensor, num_heads: int,
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: Optional[int] = None,
-                      chunk: int = 512) -> torch.Tensor:
+                      chunk: int = 512,
+                      scale: Optional[float] = None) -> torch.Tensor:
     """Attention one chunk of queries at a time, in plain PyTorch (the
     reference's ``chunked_attention``): each chunk's (B, Hq, chunk, T) f32
     logits against the whole of K and V in f32, masked, softmaxed and
@@ -87,6 +92,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         causal: mask keys after the query.
         window: mask keys ``window`` or more steps back.
         chunk: queries per chunk.
+        scale: the scores' scale; D^-1/2 unless given.
 
     Returns:
         (B, Hq, T, D) in q's dtype. On DTensors each rank attends its own
@@ -99,21 +105,23 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     k = shard(k, ("pod", "data"), "model", None, None)
     v = shard(v, ("pod", "data"), "model", None, None)
     return per_shard(functools.partial(_chunked, causal=causal,
-                                       window=window, chunk=chunk), q, k, v)
+                                       window=window, chunk=chunk,
+                                       scale=scale), q, k, v)
 
 
 def _chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-             causal: bool, window: Optional[int],
-             chunk: int) -> torch.Tensor:
+             causal: bool, window: Optional[int], chunk: int,
+             scale: Optional[float] = None) -> torch.Tensor:
     """:func:`chunked_attention` on plain tensors, kv heads repeated."""
     T, D = q.shape[2], q.shape[3]
+    scale = D ** -0.5 if scale is None else scale
     if T % chunk:
         chunk = T
     kf, vf = k.float(), v.float()
     k_idx = torch.arange(T, device=q.device)
     outs = []
     for start in range(0, T, chunk):
-        qf = q[:, :, start:start + chunk].float() * D ** -0.5
+        qf = q[:, :, start:start + chunk].float() * scale
         logits = torch.matmul(qf, kf.transpose(-1, -2))
         q_idx = start + torch.arange(chunk, device=q.device)
         age = q_idx[:, None] - k_idx[None, :]
@@ -128,26 +136,59 @@ def _chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.cat(outs, dim=2).to(q.dtype)
 
 
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            impl: str, causal: bool, window: Optional[int],
+            scale: Optional[float]) -> torch.Tensor:
+    """Attention of projected q, k, v through ``impl``'s path."""
+    kw = dict(causal=causal, window=window, scale=scale)
+    if impl == "flash":
+        return flash_attention(q, k, v, **kw)
+    if impl == "xla":
+        return flash_attention_plain(q, k, v, **kw)
+    if impl == "chunked":
+        return chunked_attention(q, k, v, **kw)
+    raise ValueError(f"unknown attn_impl {impl!r}; the port has "
+                     f"'flash', 'xla' and 'chunked'")
+
+
 def attention_train(p: Params, x: torch.Tensor, *, num_heads: int,
                     num_kv_heads: int, head_dim: int,
                     rope_freqs: Optional[torch.Tensor],
                     window: Optional[int] = None, causal: bool = True,
-                    impl: str = "xla") -> torch.Tensor:
+                    impl: str = "xla",
+                    scale: Optional[float] = None) -> torch.Tensor:
     """Full-sequence attention (training / prefill). x: (B, T, d)."""
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device).expand(B, T)
     q, k, v = _project_qkv(p, x, num_heads, num_kv_heads, head_dim,
                            positions, rope_freqs)
-    if impl == "flash":
-        out = flash_attention(q, k, v, causal=causal, window=window)
-    elif impl == "xla":
-        out = flash_attention_plain(q, k, v, causal=causal, window=window)
-    elif impl == "chunked":
-        out = chunked_attention(q, k, v, causal=causal, window=window)
-    else:
-        raise ValueError(f"unknown attn_impl {impl!r}; the port has "
-                         f"'flash', 'xla' and 'chunked'")
+    out = _attend(q, k, v, impl=impl, causal=causal, window=window,
+                  scale=scale)
     return dense(p["wo"], flatten(out.transpose(1, 2), 2))
+
+
+def attention_prefill(p: Params, x: torch.Tensor, cache: Params, *,
+                      num_heads: int, num_kv_heads: int, head_dim: int,
+                      rope_freqs: Optional[torch.Tensor],
+                      impl: str = "flash", scale: Optional[float] = None
+                      ) -> tuple[torch.Tensor, Params]:
+    """A causal prompt x (B, T, d) through :func:`attention_train`'s path,
+    its keys and values written into an empty ring cache's slots 0 .. T-1
+    (no window: the ring must hold T). Returns the output and the cache
+    with ``len`` T, ready for :func:`attention_decode` at position T."""
+    B, T, _ = x.shape
+    if cache["len"] != 0 or cache["k"].shape[2] < T:
+        raise ValueError(f"attention_prefill: needs an empty cache of at "
+                         f"least {T} slots, got len {cache['len']} of "
+                         f"{cache['k'].shape[2]}")
+    positions = torch.arange(T, device=x.device).expand(B, T)
+    q, k, v = _project_qkv(p, x, num_heads, num_kv_heads, head_dim,
+                           positions, rope_freqs)
+    out = _attend(q, k, v, impl=impl, causal=True, window=None, scale=scale)
+    cache["k"][:, :, :T] = k
+    cache["v"][:, :, :T] = v
+    return dense(p["wo"], flatten(out.transpose(1, 2), 2)), \
+        {"k": cache["k"], "v": cache["v"], "len": T}
 
 
 def init_kv_cache(batch: int, num_kv_heads: int, max_len: int,
@@ -182,7 +223,8 @@ def _write_slot(cache: torch.Tensor, slot: int,
 def attention_decode(p: Params, x: torch.Tensor, cache: Params, *,
                      num_heads: int, num_kv_heads: int, head_dim: int,
                      rope_freqs: Optional[torch.Tensor],
-                     window: Optional[int] = None
+                     window: Optional[int] = None,
+                     scale: Optional[float] = None
                      ) -> tuple[torch.Tensor, Params]:
     """Single-token decode. x: (B, 1, d). Writes the new key and value
     into the cache's ring in place (saves a copy of the whole cache per
@@ -207,7 +249,7 @@ def attention_decode(p: Params, x: torch.Tensor, cache: Params, *,
 
     G = num_heads // num_kv_heads
     qf = unflatten(q.float()[:, :, 0], 1, (num_kv_heads, G)) * \
-        head_dim ** -0.5
+        (head_dim ** -0.5 if scale is None else scale)
 
     def attend(qf, ck, cv):
         logits = torch.einsum("bhgd,bhsd->bhgs", qf, ck.float())

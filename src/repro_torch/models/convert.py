@@ -12,7 +12,9 @@ the reference. Nothing here imports the reference: the caller turns its
 arrays into numpy first (``jax.tree.map(np.asarray, params)``).
 :func:`reference_layout` gives the same stacked layout as shapes only
 (meta tensors), for parameters and caches alike: what the sharding rules
-and the dry run's byte counts read.
+and the dry run's byte counts read. :func:`params_from_zamba2_state_dict`
+reads the published Zamba2 layout's parameters by the names of its
+``transformers`` state dict.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, Zamba2Config
 
 
 def _tensors(tree: Any, device: torch.device) -> Any:
@@ -144,6 +146,65 @@ def params_to_numpy(cfg: ModelConfig, params: dict) -> dict:
     else:
         raise ValueError(f"unknown family {cfg.family!r}")
     return out
+
+
+def params_from_zamba2_state_dict(cfg: Zamba2Config, sd: dict) -> dict:
+    """The port's parameters of the published Zamba2 layout from tensors
+    named as ``transformers``' ``Zamba2ForCausalLM`` names its parameters
+    (each once, as ``named_parameters`` gives them: a shared block under
+    the first hybrid layer that runs it, the tied LM head as the
+    embedding). Dense kernels are the state dict's (out, in) weights
+    transposed, as views (no copy); the embedding table stays as it is;
+    norms, the conv and the SSD's scalars are made f32.
+
+    Args:
+        cfg: the layout the tensors were drawn for.
+        sd: name -> tensor, any device and dtype.
+
+    Returns:
+        The tree :meth:`Model.init` of ``build_model(cfg)`` returns.
+    """
+    def lin(name):
+        return {"kernel": sd[name].t()}
+
+    def f32(name):
+        return sd[name].float()
+
+    ids = list(cfg.hybrid_layer_ids)
+    nb = cfg.num_mem_blocks
+    layers = []
+    for i in range(cfg.num_layers):
+        pre = f"model.layers.{i}." + ("mamba_decoder." if i in ids else "")
+        m = pre + "mamba."
+        layers.append({"ln": {"scale": f32(pre + "input_layernorm.weight")},
+                       "mamba": {
+                           "in_proj": lin(m + "in_proj.weight"),
+                           "conv_w": sd[m + "conv1d.weight"][:, 0, :].t()
+                           .float().contiguous(),
+                           "conv_b": f32(m + "conv1d.bias"),
+                           "A_log": f32(m + "A_log"),
+                           "D": f32(m + "D"),
+                           "dt_bias": f32(m + "dt_bias"),
+                           "norm": {"scale": f32(m + "norm.weight")},
+                           "out_proj": lin(m + "out_proj.weight")}})
+    shared = [f"model.layers.{ids[b]}.shared_transformer." for b in range(nb)]
+    blocks = [{"ln_attn": {"scale": f32(s + "input_layernorm.weight")},
+               "attn": {w: lin(s + f"self_attn.{n}_proj.weight")
+                        for w, n in (("wq", "q"), ("wk", "k"), ("wv", "v"),
+                                     ("wo", "o"))},
+               "ln_mlp": {"scale": f32(s + "pre_ff_layernorm.weight")},
+               "gate_up": lin(s + "feed_forward.gate_up_proj.weight"),
+               "down": lin(s + "feed_forward.down_proj.weight")}
+              for s in shared]
+    hybrid = []
+    for j, layer in enumerate(ids):
+        ad = shared[j % nb] + f"feed_forward.gate_up_proj_adapter_list.{j}."
+        hybrid.append({"adapter_in": lin(ad + "0.weight"),
+                       "adapter_out": lin(ad + "1.weight"),
+                       "linear": lin(f"model.layers.{layer}.linear.weight")})
+    return {"embed": {"table": sd["model.embed_tokens.weight"]},
+            "layers": layers, "blocks": blocks, "hybrid": hybrid,
+            "final_norm": {"scale": f32("model.final_layernorm.weight")}}
 
 
 META = torch.device("meta")

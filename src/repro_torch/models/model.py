@@ -6,11 +6,15 @@
     logits, aux = model.forward(params, batch)        # full-sequence logits
     logits = model.prefill_logits(params, batch)      # last-pos logits
     cache = model.init_cache(batch, max_len)
-    cache = model.prefill(params, batch, cache)       # enc-dec only
+    cache = model.prefill(params, batch, cache)       # enc-dec: the encoder
+    logits, cache = model.prefill(params, batch, cache)   # published zamba2
     logits, cache = model.decode_step(params, tokens, cache)
 
 Families: dense (minicpm/qwen3/qwen1.5/h2o), moe (qwen3-moe/phi3.5-moe),
-vlm (internvl2), encdec (whisper), ssm (xlstm), hybrid (zamba2). The
+vlm (internvl2), encdec (whisper), ssm (xlstm), hybrid (zamba2; a
+:class:`Zamba2Config` builds the published layout, zamba2-7b-instruct,
+whose ``prefill`` runs the prompt through the kernels into both caches and
+returns the last position's logits). The
 reference scans its layer stacks (``xscan``); here the stacks are Python
 lists of per-layer parameter dicts and a plain loop walks them;
 ``cfg.remat`` recomputes the blocks the reference wraps in
@@ -30,7 +34,7 @@ from typing import Any, Callable, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, Zamba2Config
 from ..kernels import flash_attention_plain
 from ..tree import leaves
 from . import attention as attn
@@ -658,10 +662,189 @@ def _build_zamba(cfg: ModelConfig) -> Model:
 
 
 # ===========================================================================
+# zamba2, the published layout (Zamba2-7B-Instruct)
+# ===========================================================================
+
+def _build_zamba2(cfg: Zamba2Config) -> Model:
+    """Mamba-2 layers; before the Mamba layer at each hybrid layer l_j one
+    of the shared blocks (block j % num_mem_blocks) runs over [x ; e], the
+    residual beside the token embedding:
+
+        t = RMSNorm([x ; e]);  a = o(attn(RoPE(q t), RoPE(k t), v t))
+        [g ; u] = gate_up(RMSNorm(a)) + B_j A_j RMSNorm(a)    (LoRA j)
+        x = x + Mamba2(RMSNorm(x + linear_j(down(gelu(g) u))))
+
+    and every other layer is x = x + Mamba2(RMSNorm(x)), its B and C in
+    groups, its gate before its norm; then the final RMSNorm and the
+    embedding's transpose. Attention scores are scaled by
+    (head_dim / 2)^-1/2. The residual stream takes the embedding table's
+    dtype (bf16 for serving, f32 in the CPU tests); norms, the SSD's
+    scalars, its state and the logits are f32.
+    """
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    apps = {layer: j for j, layer in enumerate(cfg.hybrid_layer_ids)}
+    eps = cfg.norm_eps
+    heads = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+                 head_dim=hd, scale=(hd / 2) ** -0.5)
+    ssd = dict(d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim,
+               ngroups=cfg.mamba_ngroups, gate_before_norm=True, eps=eps)
+
+    def init(generator: torch.Generator,
+             device: torch.device | str = "cuda:0", *,
+             dense_dtype: torch.dtype = torch.float32) -> Params:
+        """Random parameters of the layout, the dense kernels and the
+        embedding table in ``dense_dtype`` (the residual stream's)."""
+        device = torch.device(device)
+
+        def lin(d_in, d_out):
+            return init_dense(generator, d_in, d_out, device=device,
+                              dtype=dense_dtype)
+
+        a = 2 * d                                   # [x ; e]
+        table = init_embedding(generator, cfg.vocab_size, d, device=device)
+        return {
+            "embed": {"table": table["table"].to(dense_dtype)},
+            "layers": [{"ln": init_rmsnorm(d, device),
+                        "mamba": ssm_mod.init_mamba2(
+                            generator, d, cfg.ssm_state, cfg.ssm_head_dim,
+                            device=device, dtype=dense_dtype,
+                            ngroups=cfg.mamba_ngroups)}
+                       for _ in range(cfg.num_layers)],
+            "blocks": [{"ln_attn": init_rmsnorm(a, device),
+                        "attn": {"wq": lin(a, cfg.num_heads * hd),
+                                 "wk": lin(a, cfg.num_kv_heads * hd),
+                                 "wv": lin(a, cfg.num_kv_heads * hd),
+                                 "wo": lin(cfg.num_heads * hd, d)},
+                        "ln_mlp": init_rmsnorm(d, device),
+                        "gate_up": lin(d, 2 * cfg.d_ff),
+                        "down": lin(cfg.d_ff, d)}
+                       for _ in range(cfg.num_mem_blocks)],
+            "hybrid": [{"adapter_in": lin(d, cfg.adapter_rank),
+                        "adapter_out": lin(cfg.adapter_rank, 2 * cfg.d_ff),
+                        "linear": lin(d, d)}
+                       for _ in cfg.hybrid_layer_ids],
+            "final_norm": init_rmsnorm(d, device),
+        }
+
+    def rope(device):
+        return rope_frequencies(hd, cfg.rope_theta).to(device)
+
+    def shared_input(params, j, x, e):
+        """Block j % num_mem_blocks's attention input, RMSNorm([x ; e])."""
+        blk = params["blocks"][j % cfg.num_mem_blocks]
+        return blk, rmsnorm(blk["ln_attn"], torch.cat([x, e], dim=-1), eps)
+
+    def shared_out(params, j, blk, a):
+        """The MLP with application j's LoRA, then its linear: s."""
+        an = rmsnorm(blk["ln_mlp"], a, eps)
+        hy = params["hybrid"][j]
+        gu = dense(blk["gate_up"], an) + dense(
+            hy["adapter_out"], dense(hy["adapter_in"], an))
+        g, u = torch.chunk(gu, 2, dim=-1)
+        m = dense(blk["down"], torch.nn.functional.gelu(g) * u)
+        return dense(hy["linear"], m)
+
+    def logits_of(params, x):
+        return unembed(params["embed"], rmsnorm(params["final_norm"], x,
+                                                eps))
+
+    def run(params, tokens, cache=None):
+        """The prompt's hidden states (before the final norm) through the
+        kernels' wrappers; with ``cache`` (empty) also fills it."""
+        table = params["embed"]
+        e = embed(table, tokens, dtype=table["table"].dtype)
+        freqs = rope(e.device)
+        x = e
+        for layer, p in enumerate(params["layers"]):
+            h = x
+            j = apps.get(layer)
+            if j is not None:
+                blk, t = shared_input(params, j, x, e)
+                if cache is None:
+                    a = attn.attention_train(
+                        blk["attn"], t, rope_freqs=freqs, impl=cfg.attn_impl,
+                        **heads)
+                else:
+                    a, cache["attn"][j] = attn.attention_prefill(
+                        blk["attn"], t, cache["attn"][j], rope_freqs=freqs,
+                        impl=cfg.attn_impl, **heads)
+                h = x + shared_out(params, j, blk, a)
+            hn = rmsnorm(p["ln"], h, eps)
+            if cache is None:
+                x = x + ssm_mod.mamba2_train(p["mamba"], hn,
+                                             impl=cfg.mixer_impl, **ssd)
+            else:
+                m, cache["mamba"][layer] = ssm_mod.mamba2_train(
+                    p["mamba"], hn, impl=cfg.mixer_impl, return_cache=True,
+                    **ssd)
+                x = x + m
+        return x
+
+    def forward(params, batch):
+        """tokens (B, T) -> f32 logits (B, T, vocab) and a zero aux."""
+        logits = logits_of(params, run(params, batch["tokens"]))
+        return logits, torch.zeros((), device=logits.device)
+
+    def init_cache(batch: int, max_len: int, *,
+                   device: torch.device | str = "cuda:0",
+                   dtype: torch.dtype = torch.bfloat16) -> Params:
+        """Empty caches: each hybrid application's K and V ring of
+        ``max_len`` slots in ``dtype`` (the residual stream's), each Mamba
+        layer's f32 SSD state and conv buffer."""
+        device = torch.device(device)
+        return {
+            "mamba": [ssm_mod.init_mamba2_cache(
+                batch, d, cfg.ssm_state, cfg.ssm_head_dim, device=device,
+                ngroups=cfg.mamba_ngroups)
+                for _ in range(cfg.num_layers)],
+            "attn": [attn.init_kv_cache(batch, cfg.num_kv_heads, max_len, hd,
+                                        device=device, dtype=dtype)
+                     for _ in cfg.hybrid_layer_ids],
+        }
+
+    def prefill(params, batch, cache):
+        """The prompt (``batch["tokens"]``, B x P) through the kernels'
+        wrappers into an empty cache: every application's K and V in slots
+        0 .. P-1, every Mamba layer's conv buffer and final SSD state.
+        Returns the f32 logits at the last prompt position (B, vocab) and
+        the filled cache."""
+        cache = {"mamba": list(cache["mamba"]), "attn": list(cache["attn"])}
+        x = run(params, batch["tokens"], cache)
+        return logits_of(params, x[:, -1:])[:, 0], cache
+
+    def decode_step(params, tokens, cache):
+        """tokens (B, 1) at the position the caches have reached -> f32
+        logits (B, vocab) and the advanced caches."""
+        table = params["embed"]
+        e = embed(table, tokens, dtype=table["table"].dtype)
+        freqs = rope(e.device)
+        x = e
+        mc, ac = list(cache["mamba"]), list(cache["attn"])
+        for layer, p in enumerate(params["layers"]):
+            h = x
+            j = apps.get(layer)
+            if j is not None:
+                blk, t = shared_input(params, j, x, e)
+                a, ac[j] = attn.attention_decode(
+                    blk["attn"], t, ac[j], rope_freqs=freqs, **heads)
+                h = x + shared_out(params, j, blk, a)
+            m, mc[layer] = ssm_mod.mamba2_decode(
+                p["mamba"], rmsnorm(p["ln"], h, eps), mc[layer], **ssd)
+            x = x + m
+        return logits_of(params, x)[:, 0], {"mamba": mc, "attn": ac}
+
+    return Model(cfg=cfg, init=init, forward=forward,
+                 init_cache=init_cache, decode_step=decode_step,
+                 prefill=prefill)
+
+
+# ===========================================================================
 # factory
 # ===========================================================================
 
 def build_model(cfg: ModelConfig) -> Model:
+    if isinstance(cfg, Zamba2Config):
+        return _build_zamba2(cfg)
     if cfg.family in ("dense", "moe", "vlm"):
         return _build_decoder_lm(cfg)
     if cfg.family == "encdec":

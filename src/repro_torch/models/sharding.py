@@ -406,6 +406,10 @@ def cache_step(fn, cache: torch.Tensor, names: str,
     and result's dim of its letter; an arg without that letter is whole on
     those ranks, and a result without it is a partial sum over them (the
     letter was contracted away). With a plain ``cache``, ``fn(*args)``."""
+    if not any(isinstance(a, DTensor) for a in (cache, *args)):
+        # no layout to work out: a decode step's host time is mostly its
+        # Python, and this is once a layer and step
+        return fn(*args)
     groups = tuple(split_axes(cache, d) for d in range(cache.ndim))
 
     def layout(dims: str, absent) -> tuple:

@@ -11,12 +11,21 @@ CUDA tensors, its plain version on CPU tensors), the plain version itself
 (``impl="chunked"``, the training and dry-run path). Decode
 (:func:`mamba2_decode`) updates the (H, d_state, d_head) f32 state, O(1)
 per token. The depthwise causal conv (width 4)
-before the SSD follows Mamba-2; n_groups = 1 (B and C shared by the heads).
-A_log, dt_bias, D and the norm scale are used in f32.
+before the SSD follows Mamba-2. ``ngroups`` groups of B and C (1 by
+default: B and C shared by all the heads; Zamba2-7B-Instruct has 2, head
+h reading group h // (H / ngroups)). The output norm is the port's
+zamba2-7b's, ``rmsnorm(y) * silu(z)``, unless ``gate_before_norm``: then
+the published Mamba-2's, an RMSNorm of y * silu(z) over each group's
+d_inner / ngroups channels (:func:`gated_rmsnorm`). With ``return_cache``
+:func:`mamba2_train` is a prefill: it also returns the decode cache after
+the prompt (the SSD's final f32 state from the kernel, and the conv's
+last W - 1 input rows). A_log, dt_bias, D and the norm scale are used in
+f32.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..kernels import (chunked_linear_attention, linear_attention,
                        linear_attention_plain)
@@ -32,16 +41,17 @@ CONV_WIDTH = 4
 
 def init_mamba2(generator: torch.Generator, d_model: int, d_state: int,
                 head_dim: int = 64, expand: int = 2, *,
-                device: torch.device,
-                dtype: torch.dtype = torch.float32) -> Params:
+                device: torch.device, dtype: torch.dtype = torch.float32,
+                ngroups: int = 1) -> Params:
     d_inner = expand * d_model
     heads = d_inner // head_dim
-    conv_dim = d_inner + 2 * d_state
+    conv_dim = d_inner + 2 * ngroups * d_state
     f32 = dict(dtype=torch.float32, device=device)
     return {
-        # fused input projection: [z (gate), x, B, C, dt]
+        # fused input projection: [z (gate), x, B, C, dt], B and C
+        # ngroups * d_state wide
         "in_proj": init_dense(generator, d_model,
-                              2 * d_inner + 2 * d_state + heads,
+                              2 * d_inner + 2 * ngroups * d_state + heads,
                               device=device, dtype=dtype),
         "conv_w": _normal(generator, (CONV_WIDTH, conv_dim),
                           0.5 / CONV_WIDTH, device),
@@ -63,6 +73,37 @@ def _split_proj(proj: torch.Tensor, d_inner: int, d_state: int,
                        dim=-1)
 
 
+def _per_head(m: torch.Tensor, heads: int, ngroups: int) -> torch.Tensor:
+    """(..., ngroups * s) -> (..., heads, s): head h reads group
+    h // (heads // ngroups); a view of m for one group."""
+    lead, s = m.shape[:-1], m.shape[-1] // ngroups
+    return m.unflatten(-1, (ngroups, 1, s)).expand(
+        *lead, ngroups, heads // ngroups, s).flatten(-3, -2)
+
+
+def gated_rmsnorm(p: Params, y: torch.Tensor, z: torch.Tensor, groups: int,
+                  eps: float) -> torch.Tensor:
+    """The published Mamba-2 output norm: y * silu(z) in f32, RMS-normed
+    over each of ``groups`` equal groups of its last dim, times the
+    scale; in y's dtype. silu in f32 is ``F.silu`` (one kernel, where
+    :func:`layers.silu` rounds as the reference package does in bf16)."""
+    h = y.float() * F.silu(z.float())
+    g = h.reshape(*h.shape[:-1], groups, h.shape[-1] // groups)
+    g = g * torch.rsqrt(torch.mean(g * g, dim=-1, keepdim=True) + eps)
+    return (g.reshape(h.shape) * p["scale"]).to(y.dtype)
+
+
+def _conv_tail(xbc: torch.Tensor) -> torch.Tensor:
+    """The conv buffer after a prompt: its last W - 1 input rows (zeros
+    before the first), f32, (B, W - 1, C)."""
+    tail = xbc[:, -(CONV_WIDTH - 1):].float()
+    short = CONV_WIDTH - 1 - tail.shape[1]
+    if short:
+        tail = torch.cat([tail.new_zeros(tail.shape[0], short,
+                                         tail.shape[2]), tail], dim=1)
+    return tail.contiguous()
+
+
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv along time. x: (B, T, C); w: (W, C)."""
@@ -79,19 +120,28 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
 
 
 def mamba2_train(p: Params, x: torch.Tensor, *, d_state: int,
-                 head_dim: int = 64, expand: int = 2,
-                 impl: str = "ref") -> torch.Tensor:
-    """Full-sequence SSD. x: (B, T, d_model)."""
+                 head_dim: int = 64, expand: int = 2, impl: str = "ref",
+                 ngroups: int = 1, gate_before_norm: bool = False,
+                 eps: float = 1e-6, return_cache: bool = False):
+    """Full-sequence SSD. x: (B, T, d_model).
+
+    Returns:
+        (B, T, d_model); with ``return_cache`` (``impl`` "pallas" or
+        "ref") also the decode cache after the last step, as
+        :func:`init_mamba2_cache` lays it out.
+    """
     Bsz, T, d_model = x.shape
     d_inner = expand * d_model
     heads = d_inner // head_dim
+    d_bc = ngroups * d_state
 
     proj = dense(p["in_proj"], x)
-    z, xc, Bmat, Cmat, dt = _split_proj(proj, d_inner, d_state, heads)
+    z, xc, Bmat, Cmat, dt = _split_proj(proj, d_inner, d_bc, heads)
     # conv is applied over [x, B, C] jointly (Mamba-2); dt bypasses it
     xbc = torch.cat([xc, Bmat, Cmat], dim=-1)
+    conv_tail = _conv_tail(xbc) if return_cache else None
     xbc = silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]))
-    xs, Bmat, Cmat = torch.split(xbc, [d_inner, d_state, d_state], dim=-1)
+    xs, Bmat, Cmat = torch.split(xbc, [d_inner, d_bc, d_bc], dim=-1)
 
     dt = softplus(dt.float() + p["dt_bias"])                   # (B,T,H)
     A = torch.exp(p["A_log"])                                    # (H,)
@@ -99,8 +149,8 @@ def mamba2_train(p: Params, x: torch.Tensor, *, d_state: int,
 
     # head-major layout for the kernel: (B*H, T, .)
     xh = unflatten(xs, -1, (heads, head_dim))
-    q = Cmat[:, :, None, :].expand(Bsz, T, heads, d_state)
-    k = Bmat[:, :, None, :] * dt[..., None].to(Bmat.dtype)
+    q = _per_head(Cmat, heads, ngroups)
+    k = _per_head(Bmat, heads, ngroups) * dt[..., None].to(Bmat.dtype)
 
     def hm(a):  # (B,T,H,D) -> (B*H,T,D), contiguous
         # batch-parallel SSD, as the reference pins it (see xlstm.py)
@@ -108,29 +158,44 @@ def mamba2_train(p: Params, x: torch.Tensor, *, d_state: int,
         return a.transpose(1, 2).reshape(Bsz * heads, T, a.shape[-1])
 
     ld = hm(log_decay[..., None])[..., 0]
+    if return_cache and impl not in ("pallas", "ref"):
+        raise ValueError(f"mamba2_train: return_cache takes mixer_impl "
+                         f"'pallas' or 'ref', got {impl!r}")
     if impl == "pallas":
-        y = linear_attention(hm(q), hm(k), hm(xh), ld)
+        y = linear_attention(hm(q), hm(k), hm(xh), ld,
+                             return_final_state=return_cache)
     elif impl == "ref":
-        y = linear_attention_plain(hm(q), hm(k), hm(xh), ld)
+        y = linear_attention_plain(hm(q), hm(k), hm(xh), ld,
+                                   return_final_state=return_cache)
     elif impl == "chunked":
         y = chunked_linear_attention(hm(q), hm(k), hm(xh), ld)
     else:
         raise ValueError(f"unknown mixer_impl {impl!r}; the port has "
                          f"'pallas', 'ref' and 'chunked'")
+    if return_cache:
+        y, state = y
     y = unflatten(y, 0, (Bsz, heads)).transpose(1, 2)           # (B,T,H,D)
     y = y + p["D"].to(y.dtype)[None, None, :, None] * xh
     y = flatten(y, 2)
-    y = rmsnorm(p["norm"], y) * silu(z)
-    return dense(p["out_proj"], y)
+    if gate_before_norm:
+        y = gated_rmsnorm(p["norm"], y, z, ngroups, eps)
+    else:
+        y = rmsnorm(p["norm"], y) * silu(z)
+    out = dense(p["out_proj"], y)
+    if not return_cache:
+        return out
+    return out, {"state": state.view(Bsz, heads, d_state, head_dim),
+                 "conv": conv_tail}
 
 
 def init_mamba2_cache(batch: int, d_model: int, d_state: int,
                       head_dim: int = 64, expand: int = 2, *,
                       device: torch.device,
-                      dtype: torch.dtype = torch.float32) -> Params:
+                      dtype: torch.dtype = torch.float32,
+                      ngroups: int = 1) -> Params:
     d_inner = expand * d_model
     heads = d_inner // head_dim
-    conv_dim = d_inner + 2 * d_state
+    conv_dim = d_inner + 2 * ngroups * d_state
     return {
         "state": torch.zeros(batch, heads, d_state, head_dim, dtype=dtype,
                              device=device),
@@ -156,17 +221,23 @@ def _ssm_step(S: torch.Tensor, dt: torch.Tensor, dt_bias: torch.Tensor,
               xh: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """S <- decay S + (dt B)^T x, with dt = softplus(dt + dt_bias) and
     decay = exp(-dt exp(A_log)), and its read-out C . S: the state (B, H,
-    s, d), y (B, H, d)."""
+    s, d), y (B, H, d). B and C are (B, s), shared by every head, or
+    (B, H, s), each head's own (its group's)."""
     dt = softplus(dt.float() + dt_bias)                         # (B,H)
     decay = torch.exp(-dt * torch.exp(A_log))
     S = S * decay[..., None, None]
-    S = S + (dt[..., None] * Bv[:, None, :])[..., None] * xh[:, :, None, :]
-    return S, torch.einsum("bs,bhsd->bhd", Cv, S)
+    if Bv.dim() == 2:
+        S = S + (dt[..., None] * Bv[:, None, :])[..., None] * \
+            xh[:, :, None, :]
+        return S, torch.einsum("bs,bhsd->bhd", Cv, S)
+    S = S + (dt[..., None] * Bv)[..., None] * xh[:, :, None, :]
+    return S, torch.einsum("bhs,bhsd->bhd", Cv, S)
 
 
 def mamba2_decode(p: Params, x: torch.Tensor, cache: Params, *,
-                  d_state: int, head_dim: int = 64, expand: int = 2
-                  ) -> tuple[torch.Tensor, Params]:
+                  d_state: int, head_dim: int = 64, expand: int = 2,
+                  ngroups: int = 1, gate_before_norm: bool = False,
+                  eps: float = 1e-6) -> tuple[torch.Tensor, Params]:
     """One-token step. x: (B, 1, d_model). Partitioned, with x's rows
     over the batch axes and its features over model (as zamba2's decode
     places the residual stream), it runs where its weights and its cache
@@ -181,8 +252,9 @@ def mamba2_decode(p: Params, x: torch.Tensor, cache: Params, *,
     d_inner = expand * d_model
     heads = d_inner // head_dim
 
+    d_bc = ngroups * d_state
     proj = dense(p["in_proj"], x)
-    z, xc, Bmat, Cmat, dt = _split_proj(proj, d_inner, d_state, heads)
+    z, xc, Bmat, Cmat, dt = _split_proj(proj, d_inner, d_bc, heads)
     xbc = torch.cat([xc, Bmat, Cmat], dim=-1)
 
     # rolling conv buffer, read back in the activations' dtype
@@ -191,15 +263,21 @@ def mamba2_decode(p: Params, x: torch.Tensor, cache: Params, *,
         p["conv_b"], ins=("bwc", "b_c", "_c", "c"), outs=("bc", "bwc"))
     xc1 = silu(whole(conv))[:, None, :]
 
-    xs, Bm, Cm = torch.split(xc1, [d_inner, d_state, d_state], dim=-1)
+    xs, Bm, Cm = torch.split(xc1, [d_inner, d_bc, d_bc], dim=-1)
     xh = unflatten(xs[:, 0], -1, (heads, head_dim)).float()
+    Bm, Cm, bc = Bm[:, 0, :].float(), Cm[:, 0, :].float(), "bs"
+    if ngroups > 1:
+        Bm, Cm, bc = (_per_head(Bm, heads, ngroups),
+                      _per_head(Cm, heads, ngroups), "bhs")
     S, y = cache_step(
         _ssm_step, cache["state"], "bhsd", cache["state"], dt[:, 0, :],
-        p["dt_bias"], p["A_log"], Bm[:, 0, :].float(), Cm[:, 0, :].float(),
-        xh, ins=("bhsd", "bh", "h", "h", "bs", "bs", "bhd"),
-        outs=("bhsd", "bhd"))
+        p["dt_bias"], p["A_log"], Bm, Cm, xh,
+        ins=("bhsd", "bh", "h", "h", bc, bc, "bhd"), outs=("bhsd", "bhd"))
     y = settled(y) + p["D"][None, :, None] * xh
     y = flatten(y, 1)[:, None].to(x.dtype)
-    y = rmsnorm(p["norm"], y) * silu(like(z, y))
+    if gate_before_norm:
+        y = gated_rmsnorm(p["norm"], y, z, ngroups, eps)
+    else:
+        y = rmsnorm(p["norm"], y) * silu(like(z, y))
     return like(dense(p["out_proj"], y), x), \
         {"state": S, "conv": new_conv}

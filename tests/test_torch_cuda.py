@@ -1278,3 +1278,106 @@ def test_save_async_keeps_the_saved_values_on_card(dev, tmp_path):
     assert np.array_equal(got["w"], saved["w"])
     assert np.array_equal(got["b"][0], saved["b"][0])
     assert not np.array_equal(params["w"].cpu().numpy(), saved["w"])
+
+
+# -- the published Zamba2 layout (zamba2-7b-instruct) ----------------------
+
+@pytest.mark.parametrize("b,t", [(32, 1024), (2, 333)])
+def test_flash_attention_head_dim_224_takes_the_callers_scale(dev, b, t):
+    """Zamba2-7B-Instruct's shared attention: 32 heads of 224 in bf16 with
+    the scale (224 / 2)^-1/2 given by the caller, on the tensor-core path's
+    widest instantiation, at the cell's prefill shape and at a ragged T:
+    the bf16 abs gate and chip_smoke.py's per-row relative L2 gate
+    (FLASH_ROW_REL, 1e-2); the default scale gives other outputs."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    scale = (224 / 2) ** -0.5
+    q, k, v = (torch.randn(b, 32, t, 224, generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=True, scale=scale)
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=True, scale=scale).float()
+    torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
+    row = (got.float() - want).norm(dim=-1) / want.norm(dim=-1)
+    assert float(row.max()) <= 1e-2
+    del want, row
+    other = flash_attention(q, k, v, causal=True)
+    assert float((other.float() - got.float()).abs().max()) > 0.05
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,t,dk,dv", [(6, 333, 64, 64), (3, 200, 16, 40),
+                                        (2, 130, 128, 40), (4, 1, 64, 64)])
+def test_linear_attention_returns_the_final_state(dev, dtype, bh, t, dk, dv):
+    """The state after the last step, f32 (BH, Dk, Dv), against the plain
+    recurrence's on the same inputs: f32 within the kernel's 3e-4; bf16
+    within 1e-2 relative L2 a head (the kernel carries the state in f32 and
+    forms its update from hi + lo pairs, so only the inputs are bf16 and
+    both read them alike), and the outputs are those of a launch without
+    the state, bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(22)
+    q = torch.randn(bh, t, dk, generator=g, device=dev).to(dtype)
+    k = (0.2 * torch.randn(bh, t, dk, generator=g, device=dev)).to(dtype)
+    v = torch.randn(bh, t, dv, generator=g, device=dev).to(dtype)
+    ld = -(0.1 * torch.randn(bh, t, generator=g, device=dev)).abs()
+    out, state = linear_attention(q, k, v, ld, return_final_state=True)
+    assert torch.equal(out, linear_attention(q, k, v, ld))
+    want_out, want = linear_attention_plain(q, k, v, ld,
+                                            return_final_state=True)
+    assert state.dtype == torch.float32 and state.shape == (bh, dk, dv)
+    if dtype == torch.float32:
+        torch.testing.assert_close(state, want, rtol=3e-4, atol=3e-4)
+    else:
+        rel = (state - want).flatten(1).norm(dim=1) / \
+            want.flatten(1).norm(dim=1)
+        assert float(rel.max()) <= 1e-2
+
+
+def test_zamba2_instruct_one_period_on_the_card_matches_the_reference(dev):
+    """Full widths, one period of layers: 6 Mamba layers with hybrid
+    applications at layers 1 and 4 (one on each shared block), bf16
+    weights. serve_batch (prefill through the flash and linear-attention
+    kernels, decode through the caches) against the f32 reference's full
+    forward on the same weights: both numbers the cell's check reads sit
+    below the cell's limits, and the fp8 control's above them."""
+    import json
+
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import params_from_zamba2_state_dict
+    from repro_torch.models import zamba2_reference as ref
+    from test_torch_zamba2_instruct import config_of, random_state_dict
+
+    cfg = dataclasses.replace(get_config("zamba2-7b-instruct"), num_layers=6,
+                              hybrid_layer_ids=(1, 4))
+    sd = random_state_dict(config_of(cfg), seed=23, device=dev,
+                           dtype=torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(24)
+    B, P, G = 4, 256, 8
+    tokens = torch.randint(0, cfg.vocab_size, (B, P + G), generator=g,
+                           device=dev)
+    model = build_model(cfg)
+    params = params_from_zamba2_state_dict(cfg, sd)
+    flash_attention.launches = linear_attention.launches = 0
+    with torch.no_grad():
+        got, _ = serve_batch(model, params, tokens[:, :P], tokens[:, P:])
+    assert (flash_attention.launches, linear_attention.launches) == (2, 6)
+    del params
+    limits = json.loads((pathlib.Path(__file__).resolve().parents[1]
+                         / "bench" / "configs" / "zamba2-7b-instruct.json"
+                         ).read_text())["check"]
+
+    def numbers(out, want):
+        diff = (out.float() - want).double()
+        rms = float(want.double().pow(2).mean().sqrt())
+        rows = diff.norm(dim=-1) / want.double().norm(dim=-1)
+        return {"max_err_over_rms": float(diff.abs().max()) / rms,
+                "max_row_rel_l2": float(rows.max())}
+
+    want = ref.forward(sd, tokens, config_of(cfg), keep_from=P - 1)
+    sound = numbers(got, want)
+    control = numbers(ref.forward(sd, tokens, config_of(cfg),
+                                  keep_from=P - 1, precision="fp8"), want)
+    print(f"one period: bf16 {sound}, fp8 control {control}, limits "
+          f"{limits}")
+    assert all(sound[k] <= limits[k] for k in limits)
+    assert any(control[k] > limits[k] for k in limits)

@@ -413,9 +413,10 @@ def test_linear_attention_single_bf16_operand_misses_card_gate(operand):
 def test_linear_attention_passes_its_dv_tile_to_the_bf16_entry(
         monkeypatch, dk, dv, tile):
     """On device tensors the wrapper hands the bf16 C entry the shapes and
-    the Dv tile dv_tile_for picks (64, or 32 for Dk > 64 or Dv <= 32), and
-    counts one launch. The entry and the device checks are stubbed: only
-    the wrapper's dispatch runs here."""
+    the Dv tile dv_tile_for picks (64, or 32 for Dk > 64 or Dv <= 32), a
+    null final-state pointer unless the state is asked for, and counts one
+    launch. The entry and the device checks are stubbed: only the
+    wrapper's dispatch runs here."""
     la = importlib.import_module("repro_torch.kernels.linear_attention")
     calls = []
 
@@ -435,8 +436,13 @@ def test_linear_attention_passes_its_dv_tile_to_the_bf16_entry(
     out = la.linear_attention(q, q, v, ld)
     assert tuple(out.shape) == (bh, t, dv) and out.dtype == torch.bfloat16
     assert linear_attention.launches == before + 1
-    assert len(calls) == 1 and calls[0][5:] == (bh, t, dk, dv, tile, 7)
+    assert len(calls) == 1 and calls[0][5:] == (None, bh, t, dk, dv, tile,
+                                                7)
     assert la.dv_tile_for(dk, dv) == tile
+    out, state = la.linear_attention(q, q, v, ld, return_final_state=True)
+    assert tuple(state.shape) == (bh, dk, dv)
+    assert state.dtype == torch.float32 and calls[1][5] is not None
+    assert calls[1][6:] == calls[0][6:]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
