@@ -13,7 +13,8 @@ caller asks for ``cpu``).
 :func:`serve_batch` serves one batch through a model whose ``prefill``
 runs the prompt through the kernels into its caches (the published Zamba2
 layout, ``zamba2-7b-instruct``): the prefill, then decode steps on given
-tokens, with the launch's spans.
+tokens, on a CUDA device as replays of one captured CUDA graph, with the
+launch's spans.
 
 Co-execution mode: each "request" is one data-parallel kernel launch
 served through ``CoexecutorRuntime.launch_async`` on a long-lived engine
@@ -45,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import time
+import weakref
 from typing import Optional
 
 import torch
@@ -103,17 +105,99 @@ def serve_lm(model: Model, params, *, requests: int, batch: int,
             "seconds": time.perf_counter() - t0}
 
 
+class _DecodeGraph:
+    """One decode step of a model captured as a CUDA graph, and the
+    buffers the graph reads and writes, at fixed addresses: the caches
+    (each K/V ring with its position as a 0-dim tensor on the device, each
+    Mamba layer's SSD state and conv buffer), a (B, 1) token buffer and
+    the step's logits. Built for one params object and one ``key`` (B,
+    ring length, dtype, device), on the device of the token buffer.
+
+    Capture follows one eager warm-up step on a side stream, as CUDA
+    graphs require; both run on the empty caches, which :meth:`load`
+    refills from a prefill before any replay."""
+
+    def __init__(self, model, params, key: tuple, tokens: torch.Tensor):
+        B, max_len, dtype, device = key
+        self.params, self.key = params, key
+        cache = model.init_cache(B, max_len, device=device, dtype=dtype)
+        self.attn = [dict(c, len=torch.zeros((), dtype=torch.int64,
+                                             device=device))
+                     for c in cache["attn"]]
+        self.mamba = cache["mamba"]
+        self.tokens = torch.zeros_like(tokens)
+        cache = {"attn": self.attn, "mamba": self.mamba}
+
+        def step() -> torch.Tensor:
+            # the rings and positions advance in place; the Mamba leaves
+            # are written back into the buffers the next replay reads
+            logits, new = model.decode_step(params, self.tokens, cache)
+            self._take(new["mamba"])
+            return logits
+
+        with torch.no_grad(), torch.cuda.device(device):
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                step()
+            torch.cuda.current_stream(device).wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph,
+                                  capture_error_mode="thread_local"):
+                self.logits = step()
+
+    def _take(self, mamba: list) -> None:
+        """Each Mamba layer's state and conv buffer copied into ours."""
+        for mine, theirs in zip(self.mamba, mamba):
+            for name, leaf in mine.items():
+                leaf.copy_(theirs[name])
+
+    def load(self, cache) -> None:
+        """A prefill's caches into the buffers: its Mamba leaves copied,
+        each ring's position set to its ``len`` (the rings themselves
+        were written in place)."""
+        self._take(cache["mamba"])
+        for mine, theirs in zip(self.attn, cache["attn"]):
+            mine["len"].fill_(theirs["len"])
+
+    def decode(self, last: torch.Tensor, forced: torch.Tensor
+               ) -> torch.Tensor:
+        """One replay a forced token: the logits (B, G + 1, vocab), ``last``
+        first, with nothing read back to the host."""
+        B, G = forced.shape
+        out = torch.empty(B, G + 1, last.shape[-1], dtype=last.dtype,
+                          device=last.device)
+        out[:, 0].copy_(last)
+        for i in range(G):
+            self.tokens.copy_(forced[:, i:i + 1])
+            self.graph.replay()
+            out[:, i + 1].copy_(self.logits)
+        return out
+
+
+# each model's decode graph, kept until the caller drops the model (the
+# frozen Model takes no attribute)
+_DECODE_GRAPHS: "weakref.WeakKeyDictionary[Model, _DecodeGraph]" = \
+    weakref.WeakKeyDictionary()
+
+
 def serve_batch(model: Model, params, prompts: torch.Tensor,
                 forced: torch.Tensor, *, launch: Optional[int] = None
                 ) -> tuple[torch.Tensor, list]:
     """One batch: the prompts prefilled through the model's kernels into
-    fresh caches, then one decode step a forced token.
+    the caches, then one decode step a forced token.
 
-    Starts from empty caches and keeps nothing between calls. The model's
-    ``prefill`` returns the last prompt position's logits and the filled
-    caches (``{"attn": [K/V rings], "mamba": [SSD state and conv
-    buffer]}``, as the published Zamba2 layout's do); the K/V rings take
-    the embedding table's dtype, which is that model's residual stream's.
+    The model's ``prefill`` returns the last prompt position's logits and
+    the filled caches (``{"attn": [K/V rings], "mamba": [SSD state and
+    conv buffer]}``, as the published Zamba2 layout's do); the K/V rings
+    take the embedding table's dtype, which is that model's residual
+    stream's. On a CUDA device with no parameter a DTensor, the decode
+    step is a CUDA graph replayed once a token: it is captured on the
+    first call for a (model, params, B, P + G, dtype, device) and kept,
+    with the caches it reads and writes, against the model (until the
+    caller drops the model, or the next call for another of these); each
+    call's prefill refills those caches. Elsewhere each call starts from
+    empty caches, steps eagerly and keeps nothing.
 
     Args:
         model: the built model; ``params`` its parameters on the prompts'
@@ -126,16 +210,22 @@ def serve_batch(model: Model, params, prompts: torch.Tensor,
         The f32 logits (B, G + 1, vocab) at positions P - 1 .. P + G - 1,
         and the launch's :class:`repro_torch.core.Span` s, the root first:
         ``launch`` (counts ``kv_cache_bytes``, ``ssm_state_bytes``: the
-        K/V rings' and the Mamba layers' state and conv buffers' bytes),
-        ``prefill`` (``tokens`` B P) and ``decode`` (``steps`` G,
-        ``tokens`` B G). Each phase ends at one device synchronize, and
-        none runs inside a phase.
+        K/V rings' and the Mamba layers' state and conv buffers' bytes;
+        ``graph_captures``: 1 where this call captured the decode step,
+        else 0), ``prefill`` (``tokens`` B P) and ``decode`` (``steps`` G,
+        ``tokens`` B G, ``graph_steps``: the steps a graph replayed, G or
+        0). Each phase ends at one device synchronize, and none runs
+        inside a phase.
     """
+    from torch.distributed.tensor import DTensor
+
     from ..core import Span
+    from ..tree import leaves
 
     B, P = prompts.shape
     G = forced.shape[1]
     device = prompts.device
+    dtype = params["embed"]["table"].dtype
 
     def settled() -> float:
         if device.type == "cuda":
@@ -143,26 +233,47 @@ def serve_batch(model: Model, params, prompts: torch.Tensor,
         return time.perf_counter()
 
     t0 = time.perf_counter()
-    cache = model.init_cache(B, P + G, device=device,
-                             dtype=params["embed"]["table"].dtype)
+    graph, captures = None, 0
+    if device.type == "cuda" and not any(isinstance(t, DTensor)
+                                         for t in leaves(params)):
+        key = (B, P + G, dtype, device)
+        graph = _DECODE_GRAPHS.get(model)
+        if graph is None or graph.params is not params or graph.key != key:
+            # the old graph's buffers are freed before the new ones come
+            _DECODE_GRAPHS.pop(model, None)
+            graph = _DECODE_GRAPHS[model] = _DecodeGraph(model, params, key,
+                                                         forced[:, :1])
+            captures = 1
+        cache = {"attn": [dict(c, len=0) for c in graph.attn],
+                 "mamba": graph.mamba}
+    else:
+        cache = model.init_cache(B, P + G, device=device, dtype=dtype)
     kv = sum(c[n].nbytes for c in cache["attn"] for n in ("k", "v"))
     ssm = sum(t.nbytes for c in cache["mamba"] for t in c.values())
     t1 = time.perf_counter()
     last, cache = model.prefill(params, {"tokens": prompts}, cache)
+    if graph is not None:
+        graph.load(cache)
     t2 = settled()
-    logits = [last]
-    for i in range(G):
-        step, cache = model.decode_step(params, forced[:, i:i + 1], cache)
-        logits.append(step)
-    logits = torch.stack(logits, dim=1)
+    if graph is not None:
+        logits = graph.decode(last, forced)
+    else:
+        logits = [last]
+        for i in range(G):
+            step, cache = model.decode_step(params, forced[:, i:i + 1],
+                                            cache)
+            logits.append(step)
+        logits = torch.stack(logits, dim=1)
     t3 = settled()
     return logits, [
         Span("launch", launch, None, t0, t3,
-             counts=(("kv_cache_bytes", kv), ("ssm_state_bytes", ssm))),
+             counts=(("kv_cache_bytes", kv), ("ssm_state_bytes", ssm),
+                     ("graph_captures", captures))),
         Span("prefill", launch, "launch", t1, t2,
              counts=(("tokens", B * P),)),
         Span("decode", launch, "launch", t2, t3,
-             counts=(("steps", G), ("tokens", B * G)))]
+             counts=(("steps", G), ("tokens", B * G),
+                     ("graph_steps", G if graph is not None else 0)))]
 
 
 def _percentile_ms(sorted_s: list, q: float) -> float:

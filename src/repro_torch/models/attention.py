@@ -206,15 +206,20 @@ def init_kv_cache(batch: int, num_kv_heads: int, max_len: int,
     }
 
 
-def _write_slot(cache: torch.Tensor, slot: int,
+def _write_slot(cache: torch.Tensor, slot: int | torch.Tensor,
                 new: torch.Tensor) -> None:
-    """``cache[:, :, slot] = new`` in the cache's dtype. On a DTensor whose
-    slots are sharded (ring decode, sequence over model) the write is a
-    select of every slot equal to ``slot``: indexing one slot of a sharded
-    dim would gather the whole cache onto every rank."""
+    """``cache[:, :, slot] = new`` in the cache's dtype. A ``slot`` held on
+    the device (a 0-dim tensor) is written by ``index_copy_``: indexing
+    with it would read it back to the host. On a DTensor whose slots are
+    sharded (ring decode, sequence over model) the write is a select of
+    every slot equal to ``slot``: indexing one slot of a sharded dim would
+    gather the whole cache onto every rank."""
     new = new.to(cache.dtype)
     if not isinstance(cache, DTensor):
-        cache[:, :, slot] = new
+        if isinstance(slot, torch.Tensor):
+            cache.index_copy_(2, slot.view(1), new[:, :, None])
+        else:
+            cache[:, :, slot] = new
         return
     hit = torch.arange(cache.shape[2], device=cache.device) == slot
     cache.copy_(torch.where(hit[:, None], new[:, :, None], cache))
@@ -228,12 +233,20 @@ def attention_decode(p: Params, x: torch.Tensor, cache: Params, *,
                      ) -> tuple[torch.Tensor, Params]:
     """Single-token decode. x: (B, 1, d). Writes the new key and value
     into the cache's ring in place (saves a copy of the whole cache per
-    step) and returns the output and the cache with ``len`` advanced."""
+    step) and returns the output and the cache with ``len`` advanced.
+
+    ``len``, the absolute position, is a Python int, or a 0-dim int64
+    tensor on the cache's device: then the positions, the ring slot, the
+    write and the mask are formed on the device, nothing is read back to
+    the host (a step that a CUDA graph can replay), and the tensor is
+    advanced in place."""
     B = x.shape[0]
     ck, cv = cache["k"], cache["v"]
     max_len = ck.shape[2]
     pos = cache["len"]                       # absolute position
-    positions = torch.full((B, 1), pos, device=x.device)
+    on_device = isinstance(pos, torch.Tensor)
+    positions = pos.expand(B, 1) if on_device else \
+        torch.full((B, 1), pos, device=x.device)
     q, k, v = _project_qkv(p, x, num_heads, num_kv_heads, head_dim,
                            positions, rope_freqs)
     slot = pos % max_len                     # ring write (SWA wraps)
@@ -243,7 +256,8 @@ def attention_decode(p: Params, x: torch.Tensor, cache: Params, *,
     # valid slots: ages 0..min(pos, max_len - 1) relative to the new token
     idx = torch.arange(max_len, device=x.device)
     age = torch.remainder(slot - idx, max_len)
-    valid = age <= min(pos, max_len - 1)
+    valid = age <= (pos.clamp(max=max_len - 1) if on_device
+                    else min(pos, max_len - 1))
     if window is not None:
         valid &= age < window
 
@@ -264,4 +278,5 @@ def attention_decode(p: Params, x: torch.Tensor, cache: Params, *,
         isinstance(p, Shard) and p.dim == 2 for p in ck.placements)
     out = attend(qf, ck, cv) if ring else per_shard(attend, qf, ck, cv)
     out = flatten(out, 1)[:, None].to(x.dtype)
-    return dense(p["wo"], out), {"k": ck, "v": cv, "len": pos + 1}
+    return dense(p["wo"], out), {"k": ck, "v": cv,
+                                 "len": pos.add_(1) if on_device else pos + 1}

@@ -726,8 +726,14 @@ def _build_zamba2(cfg: Zamba2Config) -> Model:
             "final_norm": init_rmsnorm(d, device),
         }
 
+    rope_on = {}
+
     def rope(device):
-        return rope_frequencies(hd, cfg.rope_theta).to(device)
+        """The RoPE frequencies on ``device``, copied there once: a decode
+        step that a CUDA graph replays may not copy from the host."""
+        if device not in rope_on:
+            rope_on[device] = rope_frequencies(hd, cfg.rope_theta).to(device)
+        return rope_on[device]
 
     def shared_input(params, j, x, e):
         """Block j % num_mem_blocks's attention input, RMSNorm([x ; e])."""
@@ -814,7 +820,10 @@ def _build_zamba2(cfg: Zamba2Config) -> Model:
 
     def decode_step(params, tokens, cache):
         """tokens (B, 1) at the position the caches have reached -> f32
-        logits (B, vocab) and the advanced caches."""
+        logits (B, vocab) and the advanced caches. With each K/V ring's
+        ``len`` a 0-dim tensor on the device (:func:`attn.attention_decode`)
+        the step reads nothing back to the host and copies nothing from
+        it, so a CUDA graph can replay it."""
         table = params["embed"]
         e = embed(table, tokens, dtype=table["table"].dtype)
         freqs = rope(e.device)

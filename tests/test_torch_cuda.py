@@ -1381,3 +1381,80 @@ def test_zamba2_instruct_one_period_on_the_card_matches_the_reference(dev):
           f"{limits}")
     assert all(sound[k] <= limits[k] for k in limits)
     assert any(control[k] > limits[k] for k in limits)
+
+
+def test_zamba2_instruct_decode_graph_on_the_card_matches_eager_steps(dev):
+    """One period of layers at full width, as above: serve_batch's decode
+    steps, replays of one captured CUDA graph, against a loop of eager
+    ``decode_step`` s on the same prefill, bit for bit (or, should cuBLAS
+    pick another algorithm under capture, each position's logits within
+    1e-6 of their L2). A second launch with other prompts replays the
+    same graph (no capture, G replays) and returns its own logits; another
+    B or another params object captures again; a replay reads nothing back
+    to the host; dropping the model drops its graph."""
+    import gc
+
+    from repro_torch.launch import serve
+    from repro_torch.models import params_from_zamba2_state_dict
+    from test_torch_zamba2_instruct import config_of, random_state_dict
+
+    cfg = dataclasses.replace(get_config("zamba2-7b-instruct"), num_layers=6,
+                              hybrid_layer_ids=(1, 4))
+    sd = random_state_dict(config_of(cfg), seed=23, device=dev,
+                           dtype=torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(25)
+    B, P, G = 4, 256, 8
+    tokens = torch.randint(0, cfg.vocab_size, (2, B, P + G), generator=g,
+                           device=dev)
+    model = build_model(cfg)
+    params = params_from_zamba2_state_dict(cfg, sd)
+
+    def eager(toks):
+        cache = model.init_cache(toks.shape[0], P + G, device=dev,
+                                 dtype=torch.bfloat16)
+        last, cache = model.prefill(params, {"tokens": toks[:, :P]}, cache)
+        out = [last]
+        for i in range(P, P + G):
+            step, cache = model.decode_step(params, toks[:, i:i + 1], cache)
+            out.append(step)
+        return torch.stack(out, dim=1)
+
+    def row_rel(a, b):
+        rows = (a - b).double().norm(dim=-1) / b.double().norm(dim=-1)
+        return float(rows.max())
+
+    def launch(toks, p=params):
+        got, spans = serve.serve_batch(model, p, toks[:, :P], toks[:, P:])
+        spans = {s.name: s for s in spans}
+        return got, (spans["launch"].count("graph_captures"),
+                     spans["decode"].count("graph_steps"))
+
+    with torch.no_grad():
+        first, second = (launch(toks) for toks in tokens)
+        assert (first[1], second[1]) == ((1, G), (0, G))
+        for (got, _), toks in zip((first, second), tokens):
+            want = eager(toks)
+            print(f"graphed against eager: bit for bit "
+                  f"{torch.equal(got, want)}, row rel L2 "
+                  f"{row_rel(got, want):.3g}")
+            assert torch.equal(got, want) or row_rel(got, want) <= 1e-6
+        assert row_rel(second[0], first[0]) > 1e-2
+
+        holder = serve._DECODE_GRAPHS[model]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            holder.decode(first[0][:, 0], tokens[0, :, P:])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+        fewer, counts = launch(tokens[0, :2])
+        assert counts == (1, G)
+        want = eager(tokens[0, :2])
+        assert torch.equal(fewer, want) or row_rel(fewer, want) <= 1e-6
+        assert launch(tokens[0, :2])[1] == (0, G)
+        assert launch(tokens[0, :2], dict(params))[1] == (1, G)
+    held = len(serve._DECODE_GRAPHS)
+    del model, holder
+    gc.collect()
+    assert len(serve._DECODE_GRAPHS) == held - 1

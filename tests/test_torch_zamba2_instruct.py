@@ -122,6 +122,9 @@ def test_prefill_and_decode_match_the_reference(tiny, mixer_impl):
     assert all(s.launch == 7 for s in spans)
     assert prefill.count("tokens") == 3 * P
     assert (decode.count("steps"), decode.count("tokens")) == (G, 3 * G)
+    # on the CPU the decode steps run eagerly: no graph
+    assert (launch.count("graph_captures"), decode.count("graph_steps")) \
+        == (0, 0)
     assert launch.start <= prefill.start < prefill.end <= decode.start
     assert decode.end <= launch.end
     hd = cfg.resolved_head_dim
@@ -131,6 +134,73 @@ def test_prefill_and_decode_match_the_reference(tiny, mixer_impl):
     conv = 2 * cfg.d_model + 2 * cfg.mamba_ngroups * cfg.ssm_state
     assert launch.count("ssm_state_bytes") == cfg.num_layers * 3 * 4 * (
         heads * cfg.ssm_state * cfg.ssm_head_dim + 3 * conv)
+
+
+@pytest.mark.parametrize("window", [None, 4])
+def test_attention_decode_takes_its_position_on_the_device(window):
+    """``len`` as a 0-dim int64 tensor (what a replayed CUDA graph reads)
+    against the Python int: the same outputs and rings bit for bit, in
+    f32, over steps that fill the 6-slot ring, reach its last slot and
+    wrap, with and without a window; the tensor is the cache's position,
+    advanced in place."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models.layers import rope_frequencies
+
+    B, d, H, Hkv, D, slots = 2, 24, 4, 2, 8, 6
+    p = attn.init_attention(torch.Generator().manual_seed(5), d, H, Hkv, D,
+                            device=CPU)
+    kw = dict(num_heads=H, num_kv_heads=Hkv, head_dim=D, window=window,
+              rope_freqs=rope_frequencies(D), scale=(D / 2) ** -0.5)
+    on_int = attn.init_kv_cache(B, Hkv, slots, D, device=CPU,
+                                dtype=torch.float32)
+    on_dev = dict(attn.init_kv_cache(B, Hkv, slots, D, device=CPU,
+                                     dtype=torch.float32),
+                  len=torch.zeros((), dtype=torch.int64))
+    pos = on_dev["len"]
+    x = torch.randn(slots + 3, B, 1, d,
+                    generator=torch.Generator().manual_seed(6))
+    for t in range(slots + 3):
+        want, on_int = attn.attention_decode(p, x[t], on_int, **kw)
+        got, on_dev = attn.attention_decode(p, x[t], on_dev, **kw)
+        assert torch.equal(got, want)
+        assert torch.equal(on_dev["k"], on_int["k"])
+        assert torch.equal(on_dev["v"], on_int["v"])
+        assert on_dev["len"] is pos and int(pos) == on_int["len"] == t + 1
+
+
+@pytest.mark.parametrize("mixer_impl", ["pallas", "ref"])
+def test_decode_step_takes_its_position_on_the_device(tiny, mixer_impl):
+    """The tiny layout's decode_step from one prefill, each ring's ``len``
+    a 0-dim tensor against the Python int: the logits and the advanced
+    caches bit for bit over G steps."""
+    cfg, sd, tokens = tiny
+    cfg = dataclasses.replace(cfg, mixer_impl=mixer_impl)
+    model = build_model(cfg)
+    params = params_from_zamba2_state_dict(cfg, sd)
+
+    def rings(cache, pos):
+        return [dict(c, k=c["k"].clone(), v=c["v"].clone(), len=pos(c))
+                for c in cache["attn"]]
+
+    with torch.no_grad():
+        _, cache = model.prefill(params, {"tokens": tokens[:, :P]},
+                                 model.init_cache(3, P + G, device=CPU,
+                                                  dtype=torch.float32))
+        on_int = {"attn": rings(cache, lambda c: c["len"]),
+                  "mamba": cache["mamba"]}
+        on_dev = {"attn": rings(cache, lambda c: torch.tensor(c["len"])),
+                  "mamba": cache["mamba"]}
+        for i in range(P, P + G):
+            want, on_int = model.decode_step(params, tokens[:, i:i + 1],
+                                             on_int)
+            got, on_dev = model.decode_step(params, tokens[:, i:i + 1],
+                                            on_dev)
+            assert torch.equal(got, want)
+    for a, b in zip(on_dev["attn"], on_int["attn"]):
+        assert torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"])
+        assert int(a["len"]) == b["len"] == P + G
+    for a, b in zip(on_dev["mamba"], on_int["mamba"]):
+        assert all(torch.equal(a[n], b[n]) for n in a)
 
 
 def test_the_forward_agrees_with_prefill_and_decode(tiny):
