@@ -3,6 +3,8 @@
 Public surface:
     CoexecutorRuntime, counits_from_devices     — real co-execution (Listing 1)
                                                   on [cuda:0, cpu]
+    measured_dist                               — per-unit shares measured
+                                                  on the served kernel
     CoexecEngine, LaunchHandle, LaunchStats     — persistent engine
     ExecutionLoop, LaunchState, Span            — the shared control plane
                                                   both backends drive
@@ -45,7 +47,8 @@ from .exec import ExecutionLoop, LaunchState, Span
 from .memory import H100_MEMORY_COSTS, MemoryCosts, MemoryModel
 from .package import Package, Range, validate_cover
 from .profiler import EwmaThroughput, SpeedBoard
-from .runtime import CoexecutorRuntime, counits_from_devices
+from .runtime import (CoexecutorRuntime, counits_from_devices,
+                      measured_dist)
 from .scheduler import (SPEED_HINT_POLICIES, DynamicScheduler,
                         HGuidedScheduler, Scheduler, StaticScheduler,
                         WorkStealingScheduler, static_bounds)
@@ -76,7 +79,8 @@ __all__ = [
     "WorkStealingScheduler", "Workload", "absorb_share",
     "as_coexec_kernel", "capacity_items_per_s", "counits_from_devices",
     "edp_ratio", "energy_report", "fusion_bucket", "geomean",
-    "grant_share", "jain_index", "make_plane", "paper_workload",
+    "grant_share", "jain_index", "make_plane", "measured_dist",
+    "paper_workload",
     "replay_cluster_lockstep", "replay_trace_cluster",
     "replay_trace_lockstep", "replay_trace_sim", "service_fairness_curve",
     "simulate", "simulate_multi", "solo_run", "static_bounds",

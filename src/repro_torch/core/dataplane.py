@@ -881,7 +881,7 @@ class DataPlane:
 
 
 class UsmDataPlane(DataPlane):
-    """Unified-shared-memory data plane: zero staging copies.
+    """Unified-shared-memory data plane: card inputs copied, outputs mapped.
 
     Every unit writes its result straight into the launch's output rows,
     the paper's "collection is free" semantics (Fig. 2b): the CPU through

@@ -38,11 +38,12 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from .dataplane import CoexecKernel
+from .dataplane import ArgRole, CoexecKernel
 from .engine import CoexecEngine, LaunchHandle, LaunchStats
 from .units import TorchUnit
 
-__all__ = ["CoexecutorRuntime", "LaunchStats", "counits_from_devices"]
+__all__ = ["CoexecutorRuntime", "LaunchStats", "counits_from_devices",
+           "measured_dist"]
 
 
 def default_devices() -> list[str]:
@@ -101,6 +102,41 @@ def counits_from_devices(devices: Optional[Sequence] = None,
             name = f"{name}#{n}"
         units.append(TorchUnit(name, d, kind=kind, speed_hint=hint))
     return units
+
+
+def measured_dist(units, kernel, inputs, total: int, memory: str = "usm"
+                  ) -> tuple[float, ...]:
+    """Per-unit computing-power shares measured on the served kernel.
+
+    Each unit runs one package of the launch alone: 1/8 of its items on
+    a CUDA unit, 1/256 on a CPU unit (hundreds of times slower on the
+    paper's kernels). A unit's speed is the package's items over its
+    busy seconds (the kernel is loaded before the clock starts).
+
+    Args:
+        units: the units to measure.
+        kernel: the served :class:`~repro_torch.core.CoexecKernel`.
+        inputs: one request's inputs.
+        total: the request's items.
+        memory: the data plane to measure under (``usm``/``buffers``).
+
+    Returns:
+        The shares, summing to 1, in unit order.
+    """
+    from ..api import CoexecSpec
+
+    spec = CoexecSpec.builder().policy("static").memory(memory).build()
+    speeds = []
+    for unit in units:
+        rows = max(1, total // (256 if unit.device.type == "cpu" else 8))
+        part = [a[(slice(None),) * arg.axis + (slice(0, rows),)]
+                if arg.role is ArgRole.SPLIT else a
+                for arg, a in zip(kernel.args, kernel.bind(inputs))]
+        with CoexecutorRuntime.from_spec(spec, units=[unit]) as rt:
+            rt.launch(rows, kernel, part)
+            busy = sum(rt.last_stats.unit_busy_s.values())
+        speeds.append(rows / max(busy, 1e-9))
+    return tuple(v / sum(speeds) for v in speeds)
 
 
 class CoexecutorRuntime:

@@ -45,14 +45,19 @@ SLO replay, and ``--cluster`` to the elastic cluster tier.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import threading
 import time
 import weakref
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 import torch
 
-from ..configs import get_config
-from ..models import Model, build_model
+from ..core import measured_dist
+from ..tree import leaves
+
+if TYPE_CHECKING:
+    from ..models import Model
 
 
 def serve_lm(model: Model, params, *, requests: int, batch: int,
@@ -107,32 +112,24 @@ def serve_lm(model: Model, params, *, requests: int, batch: int,
 
 class _DecodeGraph:
     """One decode step of a model captured as a CUDA graph, and the
-    buffers the graph reads and writes, at fixed addresses: the caches
-    (each K/V ring with its position as a 0-dim tensor on the device, each
-    Mamba layer's SSD state and conv buffer), a (B, 1) token buffer and
-    the step's logits. Built for one params object and one ``key`` (B,
-    ring length, dtype, device), on the device of the token buffer.
+    buffers the graph reads and writes, at fixed addresses: the model's
+    cache tree (``model.init_cache``), a (B, 1) token buffer and the step's
+    logits. Built for one params object and one ``key`` (B, cache length,
+    dtype, device), on the device of the token buffer.
 
     Capture follows one eager warm-up step on a side stream, as CUDA
-    graphs require; both run on the empty caches, which :meth:`load`
-    refills from a prefill before any replay."""
+    graphs require; both run on the empty cache, which a prefill refills
+    (:meth:`take`) before any replay."""
 
     def __init__(self, model, params, key: tuple, tokens: torch.Tensor):
         B, max_len, dtype, device = key
         self.params, self.key = params, key
-        cache = model.init_cache(B, max_len, device=device, dtype=dtype)
-        self.attn = [dict(c, len=torch.zeros((), dtype=torch.int64,
-                                             device=device))
-                     for c in cache["attn"]]
-        self.mamba = cache["mamba"]
+        self.cache = model.init_cache(B, max_len, device=device, dtype=dtype)
         self.tokens = torch.zeros_like(tokens)
-        cache = {"attn": self.attn, "mamba": self.mamba}
 
         def step() -> torch.Tensor:
-            # the rings and positions advance in place; the Mamba leaves
-            # are written back into the buffers the next replay reads
-            logits, new = model.decode_step(params, self.tokens, cache)
-            self._take(new["mamba"])
+            logits, new = model.decode_step(params, self.tokens, self.cache)
+            self.take(new)
             return logits
 
         with torch.no_grad(), torch.cuda.device(device):
@@ -146,19 +143,14 @@ class _DecodeGraph:
                                   capture_error_mode="thread_local"):
                 self.logits = step()
 
-    def _take(self, mamba: list) -> None:
-        """Each Mamba layer's state and conv buffer copied into ours."""
-        for mine, theirs in zip(self.mamba, mamba):
-            for name, leaf in mine.items():
-                leaf.copy_(theirs[name])
-
-    def load(self, cache) -> None:
-        """A prefill's caches into the buffers: its Mamba leaves copied,
-        each ring's position set to its ``len`` (the rings themselves
-        were written in place)."""
-        self._take(cache["mamba"])
-        for mine, theirs in zip(self.attn, cache["attn"]):
-            mine["len"].fill_(theirs["len"])
+    def take(self, cache) -> None:
+        """A cache tree the model returned into the buffers: each leaf that
+        is not the buffer itself (a leaf the model wrote in place) is
+        copied into it."""
+        for mine, theirs in zip(leaves(self.cache), leaves(cache),
+                                strict=True):
+            if theirs is not mine:
+                mine.copy_(theirs)
 
     def decode(self, last: torch.Tensor, forced: torch.Tensor
                ) -> torch.Tensor:
@@ -175,29 +167,43 @@ class _DecodeGraph:
         return out
 
 
-# each model's decode graph, kept until the caller drops the model (the
-# frozen Model takes no attribute)
-_DECODE_GRAPHS: "weakref.WeakKeyDictionary[Model, _DecodeGraph]" = \
+class _Holder:
+    """A model's decode graph (``None`` until the first capture) and the
+    lock a caller holds from looking the graph up to its last replay's
+    end."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.graph: Optional[_DecodeGraph] = None
+
+
+# each model's holder, kept until the caller drops the model (the frozen
+# Model takes no attribute); _HOLDERS_LOCK guards the mapping itself
+_HOLDERS: "weakref.WeakKeyDictionary[Model, _Holder]" = \
     weakref.WeakKeyDictionary()
+_HOLDERS_LOCK = threading.Lock()
 
 
 def serve_batch(model: Model, params, prompts: torch.Tensor,
                 forced: torch.Tensor, *, launch: Optional[int] = None
                 ) -> tuple[torch.Tensor, list]:
     """One batch: the prompts prefilled through the model's kernels into
-    the caches, then one decode step a forced token.
+    its cache, then one decode step a forced token.
 
-    The model's ``prefill`` returns the last prompt position's logits and
-    the filled caches (``{"attn": [K/V rings], "mamba": [SSD state and
-    conv buffer]}``, as the published Zamba2 layout's do); the K/V rings
-    take the embedding table's dtype, which is that model's residual
-    stream's. On a CUDA device with no parameter a DTensor, the decode
-    step is a CUDA graph replayed once a token: it is captured on the
-    first call for a (model, params, B, P + G, dtype, device) and kept,
-    with the caches it reads and writes, against the model (until the
-    caller drops the model, or the next call for another of these); each
-    call's prefill refills those caches. Elsewhere each call starts from
-    empty caches, steps eagerly and keeps nothing.
+    The cache is a tree of tensors in the model's own layout. The model's
+    ``prefill`` fills one of its ``init_cache`` s, whatever it held, and
+    returns the last prompt position's logits and the filled cache (as the
+    published Zamba2 layout's does); the cache takes the embedding table's
+    dtype, which is that model's residual stream's. On a CUDA device with
+    no parameter a DTensor, the decode step is a CUDA graph replayed once a
+    token: it is captured on the first call for a (model, params, B,
+    P + G, dtype, device) and kept, with the cache it reads and writes,
+    against the model (until the caller drops the model, or the next call
+    for another of these); each call's prefill refills that cache. Such
+    calls on one model hold its lock from the graph's lookup to the
+    decode's closing synchronize, so threads never share the cache.
+    Elsewhere each call starts from an empty cache, steps eagerly and
+    keeps nothing.
 
     Args:
         model: the built model; ``params`` its parameters on the prompts'
@@ -209,18 +215,16 @@ def serve_batch(model: Model, params, prompts: torch.Tensor,
     Returns:
         The f32 logits (B, G + 1, vocab) at positions P - 1 .. P + G - 1,
         and the launch's :class:`repro_torch.core.Span` s, the root first:
-        ``launch`` (counts ``kv_cache_bytes``, ``ssm_state_bytes``: the
-        K/V rings' and the Mamba layers' state and conv buffers' bytes;
-        ``graph_captures``: 1 where this call captured the decode step,
-        else 0), ``prefill`` (``tokens`` B P) and ``decode`` (``steps`` G,
-        ``tokens`` B G, ``graph_steps``: the steps a graph replayed, G or
-        0). Each phase ends at one device synchronize, and none runs
-        inside a phase.
+        ``launch`` (counts ``cache_bytes``: the bytes of every tensor in the
+        cache; ``graph_captures``: 1 where this call captured the decode
+        step, else 0), ``prefill`` (``tokens`` B P) and ``decode``
+        (``steps`` G, ``tokens`` B G, ``graph_steps``: the steps a graph
+        replayed, G or 0). Each phase ends at one device synchronize, and
+        none runs inside a phase.
     """
     from torch.distributed.tensor import DTensor
 
     from ..core import Span
-    from ..tree import leaves
 
     B, P = prompts.shape
     G = forced.shape[1]
@@ -233,42 +237,46 @@ def serve_batch(model: Model, params, prompts: torch.Tensor,
         return time.perf_counter()
 
     t0 = time.perf_counter()
-    graph, captures = None, 0
+    held = None
     if device.type == "cuda" and not any(isinstance(t, DTensor)
                                          for t in leaves(params)):
-        key = (B, P + G, dtype, device)
-        graph = _DECODE_GRAPHS.get(model)
-        if graph is None or graph.params is not params or graph.key != key:
-            # the old graph's buffers are freed before the new ones come
-            _DECODE_GRAPHS.pop(model, None)
-            graph = _DECODE_GRAPHS[model] = _DecodeGraph(model, params, key,
-                                                         forced[:, :1])
-            captures = 1
-        cache = {"attn": [dict(c, len=0) for c in graph.attn],
-                 "mamba": graph.mamba}
-    else:
-        cache = model.init_cache(B, P + G, device=device, dtype=dtype)
-    kv = sum(c[n].nbytes for c in cache["attn"] for n in ("k", "v"))
-    ssm = sum(t.nbytes for c in cache["mamba"] for t in c.values())
-    t1 = time.perf_counter()
-    last, cache = model.prefill(params, {"tokens": prompts}, cache)
-    if graph is not None:
-        graph.load(cache)
-    t2 = settled()
-    if graph is not None:
-        logits = graph.decode(last, forced)
-    else:
-        logits = [last]
-        for i in range(G):
-            step, cache = model.decode_step(params, forced[:, i:i + 1],
-                                            cache)
-            logits.append(step)
-        logits = torch.stack(logits, dim=1)
-    t3 = settled()
+        with _HOLDERS_LOCK:
+            held = _HOLDERS.setdefault(model, _Holder())
+    with held.lock if held is not None else contextlib.nullcontext():
+        graph, captures = None, 0
+        if held is not None:
+            key = (B, P + G, dtype, device)
+            graph = held.graph
+            if graph is None or graph.params is not params \
+                    or graph.key != key:
+                # the old graph's buffers are freed before the new ones come
+                held.graph = graph = None
+                graph = held.graph = _DecodeGraph(model, params, key,
+                                                  forced[:, :1])
+                captures = 1
+            cache = graph.cache
+        else:
+            cache = model.init_cache(B, P + G, device=device, dtype=dtype)
+        nbytes = sum(t.nbytes for t in leaves(cache)
+                     if isinstance(t, torch.Tensor))
+        t1 = time.perf_counter()
+        last, cache = model.prefill(params, {"tokens": prompts}, cache)
+        if graph is not None:
+            graph.take(cache)
+        t2 = settled()
+        if graph is not None:
+            logits = graph.decode(last, forced)
+        else:
+            logits = [last]
+            for i in range(G):
+                step, cache = model.decode_step(params, forced[:, i:i + 1],
+                                                cache)
+                logits.append(step)
+            logits = torch.stack(logits, dim=1)
+        t3 = settled()
     return logits, [
         Span("launch", launch, None, t0, t3,
-             counts=(("kv_cache_bytes", kv), ("ssm_state_bytes", ssm),
-                     ("graph_captures", captures))),
+             counts=(("cache_bytes", nbytes), ("graph_captures", captures))),
         Span("prefill", launch, "launch", t1, t2,
              counts=(("tokens", B * P),)),
         Span("decode", launch, "launch", t2, t3,
@@ -305,42 +313,6 @@ def default_serve_spec():
             .units(count=2)
             .workload("mandelbrot")
             .build())
-
-
-def measured_dist(units, kernel, inputs, total: int, memory: str = "usm"
-                  ) -> tuple[float, ...]:
-    """Per-unit computing-power shares measured on the served kernel.
-
-    Each unit runs one package of the launch alone: 1/8 of its items on
-    a CUDA unit, 1/256 on a CPU unit (hundreds of times slower on the
-    paper's kernels). A unit's speed is the package's items over its
-    busy seconds (the kernel is loaded before the clock starts).
-
-    Args:
-        units: the units to measure.
-        kernel: the served :class:`~repro_torch.core.CoexecKernel`.
-        inputs: one request's inputs.
-        total: the request's items.
-        memory: the data plane to measure under (``usm``/``buffers``).
-
-    Returns:
-        The shares, summing to 1, in unit order.
-    """
-    from ..api import CoexecSpec
-    from ..core import ArgRole, CoexecutorRuntime
-
-    spec = CoexecSpec.builder().policy("static").memory(memory).build()
-    speeds = []
-    for unit in units:
-        rows = max(1, total // (256 if unit.device.type == "cpu" else 8))
-        part = [a[(slice(None),) * arg.axis + (slice(0, rows),)]
-                if arg.role is ArgRole.SPLIT else a
-                for arg, a in zip(kernel.args, kernel.bind(inputs))]
-        with CoexecutorRuntime.from_spec(spec, units=[unit]) as rt:
-            rt.launch(rows, kernel, part)
-            busy = sum(rt.last_stats.unit_busy_s.values())
-        speeds.append(rows / max(busy, 1e-9))
-    return tuple(v / sum(speeds) for v in speeds)
 
 
 def _sweep_policies(spec) -> tuple[str, ...]:
@@ -968,6 +940,9 @@ def main(argv=None, *, on_result=None):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         ap.error(f"{device} is not available; pass --device cpu")
+    from ..configs import get_config
+    from ..models import build_model
+
     cfg = get_config(args.arch).reduced()
     model = build_model(cfg)
     gen = torch.Generator(device=device).manual_seed(0)

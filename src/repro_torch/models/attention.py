@@ -173,22 +173,23 @@ def attention_prefill(p: Params, x: torch.Tensor, cache: Params, *,
                       impl: str = "flash", scale: Optional[float] = None
                       ) -> tuple[torch.Tensor, Params]:
     """A causal prompt x (B, T, d) through :func:`attention_train`'s path,
-    its keys and values written into an empty ring cache's slots 0 .. T-1
-    (no window: the ring must hold T). Returns the output and the cache
-    with ``len`` T, ready for :func:`attention_decode` at position T."""
+    its keys and values written into the ring's slots 0 .. T-1 (no window:
+    the ring must hold T), whatever the ring held. ``len`` is a 0-dim
+    int64 tensor on the cache's device, set to T in place (nothing is read
+    back to the host). Returns the output and the cache, the same tensors,
+    ready for :func:`attention_decode` at position T."""
     B, T, _ = x.shape
-    if cache["len"] != 0 or cache["k"].shape[2] < T:
-        raise ValueError(f"attention_prefill: needs an empty cache of at "
-                         f"least {T} slots, got len {cache['len']} of "
-                         f"{cache['k'].shape[2]}")
+    if cache["k"].shape[2] < T:
+        raise ValueError(f"attention_prefill: needs a cache of at least "
+                         f"{T} slots, got {cache['k'].shape[2]}")
     positions = torch.arange(T, device=x.device).expand(B, T)
     q, k, v = _project_qkv(p, x, num_heads, num_kv_heads, head_dim,
                            positions, rope_freqs)
     out = _attend(q, k, v, impl=impl, causal=True, window=None, scale=scale)
     cache["k"][:, :, :T] = k
     cache["v"][:, :, :T] = v
-    return dense(p["wo"], flatten(out.transpose(1, 2), 2)), \
-        {"k": cache["k"], "v": cache["v"], "len": T}
+    cache["len"].fill_(T)
+    return dense(p["wo"], flatten(out.transpose(1, 2), 2)), cache
 
 
 def init_kv_cache(batch: int, num_kv_heads: int, max_len: int,
@@ -235,11 +236,12 @@ def attention_decode(p: Params, x: torch.Tensor, cache: Params, *,
     into the cache's ring in place (saves a copy of the whole cache per
     step) and returns the output and the cache with ``len`` advanced.
 
-    ``len``, the absolute position, is a Python int, or a 0-dim int64
-    tensor on the cache's device: then the positions, the ring slot, the
-    write and the mask are formed on the device, nothing is read back to
-    the host (a step that a CUDA graph can replay), and the tensor is
-    advanced in place."""
+    ``len``, the absolute position, is a Python int (the caches of
+    :func:`init_kv_cache`), or a 0-dim int64 tensor on the cache's device
+    (the published Zamba2 layout's own caches): then the positions, the
+    ring slot, the write and the mask are formed on the device, nothing is
+    read back to the host (a step that a CUDA graph can replay), and the
+    tensor is advanced in place."""
     B = x.shape[0]
     ck, cv = cache["k"], cache["v"]
     max_len = ck.shape[2]

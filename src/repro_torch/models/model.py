@@ -756,7 +756,7 @@ def _build_zamba2(cfg: Zamba2Config) -> Model:
 
     def run(params, tokens, cache=None):
         """The prompt's hidden states (before the final norm) through the
-        kernels' wrappers; with ``cache`` (empty) also fills it."""
+        kernels' wrappers; with ``cache`` also fills it."""
         table = params["embed"]
         e = embed(table, tokens, dtype=table["table"].dtype)
         freqs = rope(e.device)
@@ -795,7 +795,8 @@ def _build_zamba2(cfg: Zamba2Config) -> Model:
                    device: torch.device | str = "cuda:0",
                    dtype: torch.dtype = torch.bfloat16) -> Params:
         """Empty caches: each hybrid application's K and V ring of
-        ``max_len`` slots in ``dtype`` (the residual stream's), each Mamba
+        ``max_len`` slots in ``dtype`` (the residual stream's) with its
+        position ``len`` a 0-dim int64 tensor on ``device``, each Mamba
         layer's f32 SSD state and conv buffer."""
         device = torch.device(device)
         return {
@@ -803,27 +804,33 @@ def _build_zamba2(cfg: Zamba2Config) -> Model:
                 batch, d, cfg.ssm_state, cfg.ssm_head_dim, device=device,
                 ngroups=cfg.mamba_ngroups)
                 for _ in range(cfg.num_layers)],
-            "attn": [attn.init_kv_cache(batch, cfg.num_kv_heads, max_len, hd,
-                                        device=device, dtype=dtype)
+            "attn": [dict(attn.init_kv_cache(batch, cfg.num_kv_heads,
+                                             max_len, hd, device=device,
+                                             dtype=dtype),
+                          len=torch.zeros((), dtype=torch.int64,
+                                          device=device))
                      for _ in cfg.hybrid_layer_ids],
         }
 
     def prefill(params, batch, cache):
         """The prompt (``batch["tokens"]``, B x P) through the kernels'
-        wrappers into an empty cache: every application's K and V in slots
-        0 .. P-1, every Mamba layer's conv buffer and final SSD state.
-        Returns the f32 logits at the last prompt position (B, vocab) and
-        the filled cache."""
+        wrappers into a cache of :func:`init_cache`'s, whatever it held:
+        every application's K and V in slots 0 .. P-1 of its ring and its
+        position set to P, in place; every Mamba layer's conv buffer and
+        final SSD state, new tensors. Returns the f32 logits at the last
+        prompt position (B, vocab) and the filled cache."""
         cache = {"mamba": list(cache["mamba"]), "attn": list(cache["attn"])}
         x = run(params, batch["tokens"], cache)
         return logits_of(params, x[:, -1:])[:, 0], cache
 
     def decode_step(params, tokens, cache):
         """tokens (B, 1) at the position the caches have reached -> f32
-        logits (B, vocab) and the advanced caches. With each K/V ring's
-        ``len`` a 0-dim tensor on the device (:func:`attn.attention_decode`)
-        the step reads nothing back to the host and copies nothing from
-        it, so a CUDA graph can replay it."""
+        logits (B, vocab) and the advanced caches: the rings and their
+        positions advanced in place, the Mamba leaves new tensors. With
+        each ring's ``len`` a 0-dim tensor on the device, as
+        :func:`init_cache` gives it (:func:`attn.attention_decode`), the
+        step reads nothing back to the host and copies nothing from it, so
+        a CUDA graph can replay it."""
         table = params["embed"]
         e = embed(table, tokens, dtype=table["table"].dtype)
         freqs = rope(e.device)

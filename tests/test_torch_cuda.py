@@ -1440,7 +1440,7 @@ def test_zamba2_instruct_decode_graph_on_the_card_matches_eager_steps(dev):
             assert torch.equal(got, want) or row_rel(got, want) <= 1e-6
         assert row_rel(second[0], first[0]) > 1e-2
 
-        holder = serve._DECODE_GRAPHS[model]
+        holder = serve._HOLDERS[model].graph
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -1454,7 +1454,73 @@ def test_zamba2_instruct_decode_graph_on_the_card_matches_eager_steps(dev):
         assert torch.equal(fewer, want) or row_rel(fewer, want) <= 1e-6
         assert launch(tokens[0, :2])[1] == (0, G)
         assert launch(tokens[0, :2], dict(params))[1] == (1, G)
-    held = len(serve._DECODE_GRAPHS)
+    held = len(serve._HOLDERS)
     del model, holder
     gc.collect()
-    assert len(serve._DECODE_GRAPHS) == held - 1
+    assert len(serve._HOLDERS) == held - 1
+
+
+def test_zamba2_instruct_serve_batch_from_threads_on_one_model(dev):
+    """One period of layers at full width, as above, served from three
+    threads on one model at once, three launches each: two with other
+    prompts at one B, a third at another B, whose launches capture the
+    decode graph again while the others' wait. A lock per model holds
+    each call from the graph's lookup to its last replay, so every
+    launch's logits equal its prompts' one-thread logits bit for bit."""
+    from repro_torch.launch import serve
+    from repro_torch.models import params_from_zamba2_state_dict
+    from test_torch_zamba2_instruct import config_of, random_state_dict
+
+    cfg = dataclasses.replace(get_config("zamba2-7b-instruct"), num_layers=6,
+                              hybrid_layer_ids=(1, 4))
+    sd = random_state_dict(config_of(cfg), seed=27, device=dev,
+                           dtype=torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(29)
+    B, P, G, rounds = 4, 256, 8, 3
+    tokens = torch.randint(0, cfg.vocab_size, (3, B, P + G), generator=g,
+                           device=dev)
+    batches = [tokens[0], tokens[1], tokens[2, :2]]
+    model = build_model(cfg)
+    params = params_from_zamba2_state_dict(cfg, sd)
+
+    def launch(toks):
+        with torch.no_grad():
+            got, spans = serve.serve_batch(model, params, toks[:, :P],
+                                           toks[:, P:])
+        return got, next(s for s in spans if s.name == "launch")
+
+    alone = [launch(toks)[0] for toks in batches]
+    assert not torch.equal(alone[0], alone[1])
+    start = threading.Barrier(len(batches))
+    served = [[] for _ in batches]
+    errors = []
+
+    def serve_in_turn(i):
+        try:
+            start.wait()
+            for _ in range(rounds):
+                served[i].append(launch(batches[i]))
+        except Exception as e:              # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=serve_in_turn, args=(i,))
+               for i in range(len(batches))]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    captures = sum(span.count("graph_captures")
+                   for runs in served for _, span in runs)
+    print(f"threads: {captures} captures in {rounds * len(batches)} "
+          f"launches")
+    assert captures >= 1
+    for want, runs in zip(alone, served):
+        assert len(runs) == rounds
+        assert all(torch.equal(got, want) for got, _ in runs)

@@ -8,7 +8,8 @@ static-analysis passes among them) and builds a DES profile through the
 registry has neither in ``sys.modules`` afterwards. The port's scripts
 and examples (``scripts/torch_*.py``, ``examples/torch_*.py``) import
 neither either, and collecting the port's API snapshot through the
-reference's collector loads neither.
+reference's collector loads neither. The co-execution path's share
+measurement, taken from the serve launcher, loads no model and no config.
 """
 import ast
 import os
@@ -95,6 +96,25 @@ def test_api_snapshot_collection_loads_neither():
             "assert torch_check_api.base.snapshot_lines()\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
+            "print(bad); sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_the_share_measurement_loads_no_model():
+    """``measured_dist`` as the co-execution cell takes it, from the serve
+    launcher: the runtime's own function, and nothing of the LM stack
+    (``repro_torch.models``, ``repro_torch.configs``) in ``sys.modules``
+    afterwards."""
+    code = ("import sys\n"
+            "import repro_torch.core\n"
+            "from repro_torch.launch.serve import measured_dist\n"
+            "assert measured_dist is repro_torch.core.measured_dist\n"
+            "assert measured_dist.__module__ == 'repro_torch.core.runtime'\n"
+            "bad = sorted(m for m in sys.modules if m.startswith(\n"
+            "    ('repro_torch.models', 'repro_torch.configs')))\n"
             "print(bad); sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     proc = subprocess.run([sys.executable, "-c", code], env=env,

@@ -394,7 +394,7 @@ def test_lm_branch_serves_an_encoder_decoder_through_prefill(monkeypatch,
 
         return dataclasses.replace(model, prefill=counted)
 
-    monkeypatch.setattr(serve, "build_model", spy)
+    monkeypatch.setattr(models, "build_model", spy)
     serve.main(["--arch", "whisper-medium", "--device", "cpu", "--requests",
                 "3", "--batch", "2", "--prompt-len", "4", "--max-tokens",
                 "2"])

@@ -127,13 +127,14 @@ def test_prefill_and_decode_match_the_reference(tiny, mixer_impl):
         == (0, 0)
     assert launch.start <= prefill.start < prefill.end <= decode.start
     assert decode.end <= launch.end
-    hd = cfg.resolved_head_dim
-    assert launch.count("kv_cache_bytes") == \
-        13 // 13 * 3 * 2 * 3 * cfg.num_kv_heads * (P + G) * hd * 4
+    # the K/V rings, their int64 positions, the Mamba states and convs
+    rings, hd = len(cfg.hybrid_layer_ids), cfg.resolved_head_dim
+    kv = rings * 2 * 3 * cfg.num_kv_heads * (P + G) * hd * 4
     heads = 2 * cfg.d_model // cfg.ssm_head_dim
     conv = 2 * cfg.d_model + 2 * cfg.mamba_ngroups * cfg.ssm_state
-    assert launch.count("ssm_state_bytes") == cfg.num_layers * 3 * 4 * (
+    ssm = cfg.num_layers * 3 * 4 * (
         heads * cfg.ssm_state * cfg.ssm_head_dim + 3 * conv)
+    assert launch.count("cache_bytes") == kv + 8 * rings + ssm
 
 
 @pytest.mark.parametrize("window", [None, 4])
@@ -186,9 +187,9 @@ def test_decode_step_takes_its_position_on_the_device(tiny, mixer_impl):
         _, cache = model.prefill(params, {"tokens": tokens[:, :P]},
                                  model.init_cache(3, P + G, device=CPU,
                                                   dtype=torch.float32))
-        on_int = {"attn": rings(cache, lambda c: c["len"]),
+        on_int = {"attn": rings(cache, lambda c: int(c["len"])),
                   "mamba": cache["mamba"]}
-        on_dev = {"attn": rings(cache, lambda c: torch.tensor(c["len"])),
+        on_dev = {"attn": rings(cache, lambda c: c["len"].clone()),
                   "mamba": cache["mamba"]}
         for i in range(P, P + G):
             want, on_int = model.decode_step(params, tokens[:, i:i + 1],
@@ -201,6 +202,48 @@ def test_decode_step_takes_its_position_on_the_device(tiny, mixer_impl):
         assert int(a["len"]) == b["len"] == P + G
     for a, b in zip(on_dev["mamba"], on_int["mamba"]):
         assert all(torch.equal(a[n], b[n]) for n in a)
+
+
+def test_one_cache_serves_batch_after_batch(tiny):
+    """``init_cache`` gives each ring's position as a 0-dim int64 tensor.
+    One cache, prefilled with prompts A and stepped G times, then
+    prefilled with prompts B and stepped G times, gives a fresh cache's
+    logits and caches bit for bit each time, its positions P after each
+    prefill and P + G after the steps, its rings and positions the same
+    tensors throughout: what serve_batch's held decode graph relies on."""
+    cfg, sd, tokens = tiny
+    model = build_model(cfg)
+    params = params_from_zamba2_state_dict(cfg, sd)
+    other = torch.randint(0, cfg.vocab_size, tokens.shape,
+                          generator=torch.Generator().manual_seed(8))
+
+    def fresh():
+        return model.init_cache(3, P + G, device=CPU, dtype=torch.float32)
+
+    def served(cache, toks):
+        last, cache = model.prefill(params, {"tokens": toks[:, :P]}, cache)
+        assert [int(c["len"]) for c in cache["attn"]] == [P] * 3
+        out = [last]
+        for i in range(P, P + G):
+            step, cache = model.decode_step(params, toks[:, i:i + 1], cache)
+            out.append(step)
+        assert [int(c["len"]) for c in cache["attn"]] == [P + G] * 3
+        return torch.stack(out, dim=1), cache
+
+    held = fresh()
+    rings = [leaf for c in held["attn"] for leaf in c.values()]
+    assert all(c["len"].shape == () and c["len"].dtype == torch.int64
+               for c in held["attn"])
+    with torch.no_grad():
+        for toks in (tokens, other):
+            got, held = served(held, toks)
+            want, cache = served(fresh(), toks)
+            assert torch.equal(got, want)
+            assert all(torch.equal(a, b)
+                       for a, b in zip(leaves(held), leaves(cache)))
+            assert all(a is b for a, b in zip(
+                rings, [leaf for c in held["attn"] for leaf in c.values()]))
+    assert not torch.equal(got, served(fresh(), tokens)[0])
 
 
 def test_the_forward_agrees_with_prefill_and_decode(tiny):
