@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels, with plain versions: the paper's six
-benchmarks and the LM stack's two (flash and linear attention).
+benchmarks and the LM stack's three (flash and linear attention, and
+decode attention over a K/V ring).
 
 Layout per kernel: ``<name>.py`` holds the hand-kernel wrapper (it
 launches ``csrc/<name>.cu`` on CUDA tensors) and its plain PyTorch
@@ -10,6 +11,7 @@ the :mod:`repro_torch.api.registry` kernel registry (resolve them with
 ``repro_torch.api.build_kernel(name, impl=...)``).
 """
 from . import ref
+from .decode_attention import decode_attention, decode_attention_plain
 from .flash_attention import flash_attention, flash_attention_plain
 from .gaussian import (gaussian_blur, gaussian_blur_halo,
                        gaussian_blur_halo_plain)
@@ -25,8 +27,8 @@ from .raytrace import demo_spheres, raytrace, raytrace_plain
 from .taylor import taylor_sin, taylor_sin_plain
 
 __all__ = [
-    "KERNEL_IMPLS", "chunked_linear_attention", "default_impl",
-    "demo_spheres", "flash_attention", "flash_attention_op",
+    "KERNEL_IMPLS", "chunked_linear_attention", "decode_attention",
+    "decode_attention_plain", "default_impl", "demo_spheres", "flash_attention", "flash_attention_op",
     "flash_attention_plain", "gaussian_blur", "gaussian_blur_halo",
     "gaussian_blur_halo_plain", "gaussian_op", "linear_attention",
     "linear_attention_op", "linear_attention_plain", "mandelbrot",

@@ -52,6 +52,11 @@ SIGNATURES = {
     "linear_attention_bf16": (*(_P,) * 6, *(_I,) * 5, _P),
     # q, k, v, log_decay, scores scratch, out, BH, T, Dk, Dv, bf16
     "linear_attention_wide": (_P, _P, _P, _P, _P, _P, *(_I,) * 5, _P),
+    # q, k, v, out, split outputs, split (max, sum), position on the device
+    # (null: the next argument), position, B, Hkv, G, S, D, window (0:
+    # none), scale, splits, q and out bf16
+    "decode_attention_f32": (*(_P,) * 7, _LL, *(_I,) * 6, _F, _I, _I, _P),
+    "decode_attention_bf16": (*(_P,) * 7, _LL, *(_I,) * 6, _F, _I, _I, _P),
     "host_register_mapped": (_P, _LL),
     "host_device_pointer": (_P, ctypes.POINTER(_P)),
     "host_unregister": (_P,),

@@ -115,13 +115,17 @@ class _DecodeGraph:
     buffers the graph reads and writes, at fixed addresses: the model's
     cache tree (``model.init_cache``), a (B, 1) token buffer and the step's
     logits. Built for one params object and one ``key`` (B, cache length,
-    dtype, device), on the device of the token buffer.
+    dtype, device), on the device of the token buffer. ``attn_launches``:
+    the decode-attention kernels the captured step launched, so each
+    replay runs.
 
     Capture follows one eager warm-up step on a side stream, as CUDA
     graphs require; both run on the empty cache, which a prefill refills
     (:meth:`take`) before any replay."""
 
     def __init__(self, model, params, key: tuple, tokens: torch.Tensor):
+        from ..kernels import decode_attention
+
         B, max_len, dtype, device = key
         self.params, self.key = params, key
         self.cache = model.init_cache(B, max_len, device=device, dtype=dtype)
@@ -139,9 +143,12 @@ class _DecodeGraph:
                 step()
             torch.cuda.current_stream(device).wait_stream(side)
             self.graph = torch.cuda.CUDAGraph()
+            before = decode_attention.launches
             with torch.cuda.graph(self.graph,
                                   capture_error_mode="thread_local"):
                 self.logits = step()
+            # the decode-attention kernels one replay runs
+            self.attn_launches = decode_attention.launches - before
 
     def take(self, cache) -> None:
         """A cache tree the model returned into the buffers: each leaf that
@@ -219,12 +226,15 @@ def serve_batch(model: Model, params, prompts: torch.Tensor,
         cache; ``graph_captures``: 1 where this call captured the decode
         step, else 0), ``prefill`` (``tokens`` B P) and ``decode``
         (``steps`` G, ``tokens`` B G, ``graph_steps``: the steps a graph
-        replayed, G or 0). Each phase ends at one device synchronize, and
-        none runs inside a phase.
+        replayed, G or 0; ``attn_kernel_launches``: the decode-attention
+        kernels one step launches, as the graph's capture or the eager
+        steps counted them, 0 on the CPU). Each phase ends at one device
+        synchronize, and none runs inside a phase.
     """
     from torch.distributed.tensor import DTensor
 
     from ..core import Span
+    from ..kernels import decode_attention
 
     B, P = prompts.shape
     G = forced.shape[1]
@@ -266,13 +276,16 @@ def serve_batch(model: Model, params, prompts: torch.Tensor,
         t2 = settled()
         if graph is not None:
             logits = graph.decode(last, forced)
+            attn_launches = graph.attn_launches
         else:
+            before = decode_attention.launches
             logits = [last]
             for i in range(G):
                 step, cache = model.decode_step(params, forced[:, i:i + 1],
                                                 cache)
                 logits.append(step)
             logits = torch.stack(logits, dim=1)
+            attn_launches = (decode_attention.launches - before) // max(G, 1)
         t3 = settled()
     return logits, [
         Span("launch", launch, None, t0, t3,
@@ -281,7 +294,8 @@ def serve_batch(model: Model, params, prompts: torch.Tensor,
              counts=(("tokens", B * P),)),
         Span("decode", launch, "launch", t2, t3,
              counts=(("steps", G), ("tokens", B * G),
-                     ("graph_steps", G if graph is not None else 0)))]
+                     ("graph_steps", G if graph is not None else 0),
+                     ("attn_kernel_launches", attn_launches)))]
 
 
 def _percentile_ms(sorted_s: list, q: float) -> float:

@@ -7,8 +7,10 @@ version on CPU tensors), the plain version itself (``impl="xla"``), or
 :func:`chunked_attention` (``impl="chunked"``: query chunks of 512 against
 the whole key sequence, differentiable, never the (T, T) logits at once;
 what the dry run traces full configs with). Decode
-(:func:`attention_decode`) always uses the einsum path against the cache,
-as the reference does (one query position; no kernel).
+(:func:`attention_decode`) attends over the cache's ring through
+``kernels.decode_attention``: the CUDA kernel on CUDA tensors; elsewhere,
+and on a ring whose slots are sharded, its plain version, the reference's
+einsums.
 :func:`attention_prefill` runs a prompt through the same path as training
 and writes its keys and values into the decode cache. Scores are scaled by
 ``scale``, head_dim^-1/2 unless the model gives another (Zamba2-7B-
@@ -23,7 +25,8 @@ import functools
 import torch
 from torch.distributed.tensor import DTensor, Shard
 
-from ..kernels import flash_attention, flash_attention_plain
+from ..kernels import (decode_attention, decode_attention_plain,
+                       flash_attention, flash_attention_plain)
 from .layers import apply_rope, dense, init_dense, init_rmsnorm, rmsnorm
 from .sharding import flatten, per_shard, shard, unflatten
 
@@ -255,30 +258,21 @@ def attention_decode(p: Params, x: torch.Tensor, cache: Params, *,
     _write_slot(ck, slot, k[:, :, 0])
     _write_slot(cv, slot, v[:, :, 0])
 
-    # valid slots: ages 0..min(pos, max_len - 1) relative to the new token
-    idx = torch.arange(max_len, device=x.device)
-    age = torch.remainder(slot - idx, max_len)
-    valid = age <= (pos.clamp(max=max_len - 1) if on_device
-                    else min(pos, max_len - 1))
-    if window is not None:
-        valid &= age < window
-
     G = num_heads // num_kv_heads
-    qf = unflatten(q.float()[:, :, 0], 1, (num_kv_heads, G)) * \
-        (head_dim ** -0.5 if scale is None else scale)
+    qg = unflatten(q[:, :, 0], 1, (num_kv_heads, G))
+    kw = dict(scale=head_dim ** -0.5 if scale is None else scale,
+              window=window)
 
-    def attend(qf, ck, cv):
-        logits = torch.einsum("bhgd,bhsd->bhgs", qf, ck.float())
-        logits = logits.masked_fill(~valid, float("-inf"))
-        probs = torch.softmax(logits, dim=-1)
-        return torch.einsum("bhgs,bhsd->bhgd", probs, cv.float())
+    def attend(qg, ck, cv):
+        return decode_attention(qg.contiguous(), ck, cv, pos, **kw)
 
-    # each rank attends its own rows and heads, unless the ring's slots are
-    # sharded (ring decode: then the heads are whole, and DTensor runs the
-    # einsums across the slots)
+    # each rank attends its own rows and heads through the kernel, unless
+    # the ring's slots are sharded (ring decode: then the heads are whole,
+    # and DTensor runs the plain version's einsums across the slots)
     ring = isinstance(ck, DTensor) and any(
         isinstance(p, Shard) and p.dim == 2 for p in ck.placements)
-    out = attend(qf, ck, cv) if ring else per_shard(attend, qf, ck, cv)
+    out = decode_attention_plain(qg, ck, cv, pos, **kw) if ring else \
+        per_shard(attend, qg, ck, cv)
     out = flatten(out, 1)[:, None].to(x.dtype)
     return dense(p["wo"], out), {"k": ck, "v": cv,
                                  "len": pos.add_(1) if on_device else pos + 1}

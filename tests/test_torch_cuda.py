@@ -25,7 +25,8 @@ from repro_torch.core import (ArgRole, CoexecEngine, CoexecutorRuntime,
                               MemoryModel, counits_from_devices)
 from repro_torch.core import dataplane
 from repro_torch.kernels.matmul import TILES
-from repro_torch.kernels import (demo_spheres, flash_attention,
+from repro_torch.kernels import (decode_attention, decode_attention_plain,
+                                 demo_spheres, flash_attention,
                                  flash_attention_plain, gaussian_blur_halo,
                                  gaussian_blur_halo_plain, linear_attention,
                                  linear_attention_plain, mandelbrot,
@@ -40,6 +41,7 @@ pytestmark = pytest.mark.cuda
 model_mod = importlib.import_module("repro_torch.models.model")
 matmul_mod = importlib.import_module("repro_torch.kernels.matmul")
 la_mod = importlib.import_module("repro_torch.kernels.linear_attention")
+da_mod = importlib.import_module("repro_torch.kernels.decode_attention")
 
 
 @pytest.fixture
@@ -707,11 +709,120 @@ def test_lm_kernels_never_run_the_plain_version_on_cuda(dev, monkeypatch):
 
     monkeypatch.setattr(fa_mod, "flash_attention_plain", refuse)
     monkeypatch.setattr(la_mod, "linear_attention_plain", refuse)
+    monkeypatch.setattr(da_mod, "decode_attention_plain", refuse)
     x = torch.randn(1, 2, 64, 32, device=dev)
     assert fa_mod.flash_attention(x, x, x).shape == x.shape
     a = torch.randn(2, 64, 16, device=dev)
     ld = torch.zeros(2, 64, device=dev)
     assert la_mod.linear_attention(a, a, a, ld).shape == a.shape
+    q = torch.randn(1, 2, 1, 32, device=dev)
+    assert da_mod.decode_attention(q, x, x, 63).shape == q.shape
+
+
+# (B, Hkv, G, S, D, window, pos, q dtype, ring dtype, scale): the zamba2
+# cell's shape at its two ends of a launch, a wrapped sliding-window ring
+# (h2o-danube3-4b's D 120, G 4), GQA (qwen3-0.6b's 16 q heads on 8), D 112
+# (zamba2-7b), D 64 with G 7 (internvl2-1b), G 16 (qwen3-moe's 64 q heads
+# on 4), the sliced path (B 1, Hkv 8, 32,768 slots: full, and a ring a
+# sixth full, so most slices are empty), and f32 rings (with f32 and with
+# bf16 queries) and f32 queries on bf16 rings (an f32 model's default
+# cache)
+DECODE_CASES = [
+    (32, 32, 1, 1056, 224, None, 1024, "bfloat16", "bfloat16", 112 ** -0.5),
+    (32, 32, 1, 1056, 224, None, 1055, "bfloat16", "bfloat16", 112 ** -0.5),
+    (2, 8, 4, 256, 120, 256, 1000, "bfloat16", "bfloat16", None),
+    (2, 8, 4, 300, 120, 100, 777, "bfloat16", "bfloat16", None),
+    (4, 8, 2, 512, 128, None, 300, "bfloat16", "bfloat16", None),
+    (3, 32, 1, 200, 112, None, 150, "bfloat16", "bfloat16", None),
+    (2, 2, 7, 333, 64, None, 332, "bfloat16", "bfloat16", None),
+    (2, 4, 16, 260, 128, None, 259, "bfloat16", "bfloat16", None),
+    (1, 8, 2, 32768, 128, None, 32767, "bfloat16", "bfloat16", None),
+    (1, 8, 2, 32768, 128, None, 5000, "bfloat16", "bfloat16", None),
+    (2, 4, 1, 300, 224, None, 299, "float32", "float32", 112 ** -0.5),
+    (2, 4, 3, 1000, 64, 64, 4321, "float32", "float32", None),
+    (1, 8, 2, 32768, 128, None, 20000, "float32", "float32", None),
+    (2, 4, 4, 300, 120, None, 299, "bfloat16", "float32", None),
+    (2, 4, 4, 300, 128, None, 299, "float32", "bfloat16", None),
+]
+
+
+@pytest.mark.parametrize("on_device", [False, True])
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_decode_attention_close_to_plain(dev, case, on_device):
+    """The kernel against ``decode_attention_plain`` on the same tensors,
+    with ``pos`` a Python int or a 0-dim tensor on the card: f32 outputs
+    within rtol = atol = 1e-5 (another order of summation), bf16 outputs
+    within one bf16 ulp (``chip_smoke.within_bf16_ulp``, which takes the
+    ulp at no less than 2^-8 of the row's largest value: the f32 sums'
+    error is at the scale of the row's terms); two calls bit for bit; one
+    launch a call. Every
+    slot of the rings holds data, so a slot past ``pos`` or outside the
+    window that the kernel read would show."""
+    B, Hkv, G, S, D, window, pos, qname, rname, scale = case
+    qt, rt = getattr(torch, qname), getattr(torch, rname)
+    g = torch.Generator(device=dev).manual_seed(31)
+    q = torch.randn(B, Hkv, G, D, generator=g, device=dev).to(qt)
+    k, v = (torch.randn(B, Hkv, S, D, generator=g, device=dev).to(rt)
+            for _ in range(2))
+    at = torch.tensor(pos, device=dev) if on_device else pos
+    before = decode_attention.launches
+    got = decode_attention(q, k, v, at, scale=scale, window=window)
+    assert decode_attention.launches == before + 1
+    again = decode_attention(q, k, v, at, scale=scale, window=window)
+    want = decode_attention_plain(q, k, v, pos, scale=scale, window=window)
+    assert got.dtype == want.dtype == qt and got.shape == q.shape
+    assert torch.equal(got, again)
+    if qt == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+        import chip_smoke
+
+        assert chip_smoke.within_bf16_ulp(got, want)
+
+
+def test_decode_attention_replays_in_a_graph_at_each_position(dev):
+    """Captured once with ``pos`` a 0-dim tensor on the card, a replay
+    reads the position the tensor holds then: replays at positions before
+    and after the ring wraps equal eager calls bit for bit, on the one-pass
+    and on the sliced path."""
+    g = torch.Generator(device=dev).manual_seed(37)
+    for B, Hkv, G, S, D in [(32, 32, 1, 1056, 224), (1, 8, 2, 4096, 128)]:
+        q = torch.randn(B, Hkv, G, D, generator=g, device=dev).bfloat16()
+        k, v = (torch.randn(B, Hkv, S, D, generator=g, device=dev)
+                .bfloat16() for _ in range(2))
+        pos = torch.zeros((), dtype=torch.int64, device=dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            decode_attention(q, k, v, pos)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = decode_attention(q, k, v, pos)
+        for p in (0, 7, S // 2, S - 1, S, 3 * S + 11):
+            pos.fill_(p)
+            graph.replay()
+            assert torch.equal(out, decode_attention(q, k, v, p)), (S, p)
+
+
+def test_decode_attention_refuses_on_the_card(dev):
+    q = torch.zeros(1, 2, 1, 64, device=dev, dtype=torch.bfloat16)
+    k = torch.zeros(1, 2, 8, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="q must be float32 or bfloat16"):
+        decode_attention(q.half(), k, k, 3)
+    with pytest.raises(ValueError, match="head dim 260"):
+        decode_attention(torch.zeros(1, 2, 1, 260, device=dev),
+                         *(torch.zeros(1, 2, 8, 260, device=dev),) * 2, 3)
+    odd = torch.zeros(k.numel() + 1, device=dev,
+                      dtype=torch.bfloat16)[1:].view(k.shape)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        decode_attention(q, odd, k, 3)
+    with pytest.raises(ValueError, match="0-dim int64"):
+        decode_attention(q, k, k, torch.tensor(3, dtype=torch.int32,
+                                               device=dev))
+    with pytest.raises(ValueError, match="pos must be >= 0"):
+        decode_attention(q, k, k, -1)
 
 
 # -- the serve CLI's real mode and the cluster tier on [cuda:0, cpu] ------
@@ -1426,6 +1537,9 @@ def test_zamba2_instruct_decode_graph_on_the_card_matches_eager_steps(dev):
     def launch(toks, p=params):
         got, spans = serve.serve_batch(model, p, toks[:, :P], toks[:, P:])
         spans = {s.name: s for s in spans}
+        # every replay runs the decode-attention kernel once a ring
+        assert spans["decode"].count("attn_kernel_launches") == \
+            len(cfg.hybrid_layer_ids)
         return got, (spans["launch"].count("graph_captures"),
                      spans["decode"].count("graph_steps"))
 
@@ -1524,3 +1638,34 @@ def test_zamba2_instruct_serve_batch_from_threads_on_one_model(dev):
     for want, runs in zip(alone, served):
         assert len(runs) == rounds
         assert all(torch.equal(got, want) for got, _ in runs)
+
+
+def test_zamba2_instruct_decode_launches_the_kernel_once_a_ring(dev):
+    """The published layout's 81 layers and 13 attention applications at a
+    small width: the decode span's ``attn_kernel_launches`` reads 13 on
+    the launch that captures the decode graph and on one that only
+    replays it."""
+    from repro_torch.launch import serve
+    from repro_torch.models import params_from_zamba2_state_dict
+    from test_torch_zamba2_instruct import config_of, random_state_dict
+
+    full = get_config("zamba2-7b-instruct")
+    cfg = dataclasses.replace(full.reduced(), num_layers=full.num_layers,
+                              hybrid_layer_ids=full.hybrid_layer_ids)
+    sd = random_state_dict(config_of(cfg), seed=41, device=dev,
+                           dtype=torch.bfloat16)
+    model = build_model(cfg)
+    params = params_from_zamba2_state_dict(cfg, sd)
+    g = torch.Generator(device=dev).manual_seed(43)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 2, 19), generator=g,
+                           device=dev)
+    counts = []
+    with torch.no_grad():
+        for toks in tokens:
+            _, spans = serve.serve_batch(model, params, toks[:, :16],
+                                         toks[:, 16:])
+            spans = {s.name: s for s in spans}
+            counts.append((spans["launch"].count("graph_captures"),
+                           spans["decode"].count("attn_kernel_launches")))
+    assert len(full.hybrid_layer_ids) == 13
+    assert counts == [(1, 13), (0, 13)]

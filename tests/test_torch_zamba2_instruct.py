@@ -122,9 +122,9 @@ def test_prefill_and_decode_match_the_reference(tiny, mixer_impl):
     assert all(s.launch == 7 for s in spans)
     assert prefill.count("tokens") == 3 * P
     assert (decode.count("steps"), decode.count("tokens")) == (G, 3 * G)
-    # on the CPU the decode steps run eagerly: no graph
-    assert (launch.count("graph_captures"), decode.count("graph_steps")) \
-        == (0, 0)
+    # on the CPU the decode steps run eagerly: no graph, no kernel
+    assert (launch.count("graph_captures"), decode.count("graph_steps"),
+            decode.count("attn_kernel_launches")) == (0, 0, 0)
     assert launch.start <= prefill.start < prefill.end <= decode.start
     assert decode.end <= launch.end
     # the K/V rings, their int64 positions, the Mamba states and convs
